@@ -1,0 +1,190 @@
+"""SAME 3³ conv3d: CUDA kernels, their plain versions and the autograd glue.
+
+Port of ``pcrlv2_tpu/ops/pallas_conv.py::conv3d_pallas`` (``_fwd_kernel`` and
+``_dw_kernel``).  Activations are NDHWC; parameters use the reference torch
+layout (Co, Ci, 3, 3, 3) and are repacked to (27, Ci, Co) on every call, with
+tap ``t = 9·td + 3·th + tw``.  The CUDA source is ``csrc/conv3d.cu``; its
+header says what bounds each kernel on the H100 and how the design answers it.
+
+* forward: ``out = bias + Σ_t window_t(x) @ W[t]``, f32 accumulation;
+* dx: the same forward kernel on the spatially flipped, io-swapped weights
+  (a SAME 3³ conv's adjoint);
+* dw: ``dw[t] = Σ_voxels window_t(x)ᵀ · g`` (f32), two launches: per-chunk
+  partials, then a fixed-order sum;
+* db: ``g.sum`` in f32.
+
+A wrapper given CPU tensors runs the plain version (the same 27 shifted-window
+products with f32 accumulation); given CUDA tensors it launches the kernel or
+raises.  It never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from pcrlv2_tpu_torch.ops import _build
+
+#: tap t = 9·td + 3·th + tw
+OFFSETS = [(td, th, tw) for td in range(3) for th in range(3) for tw in range(3)]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGS = {
+    "conv3d_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "conv3d_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P),
+}
+_BK = 16      # the kernels' reduction chunk
+_TILE = 64    # the kernels' output tile edge
+
+
+def _fn(kind: str, dtype: torch.dtype):
+    return _build.entry("conv3d", kind, dtype, _SIGS[kind])
+
+
+# ---------------------------------------------------------------------------
+# weight layouts
+# ---------------------------------------------------------------------------
+
+
+def repack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(Co, Ci, 3, 3, 3) → (27, Ci, Co), row ``t`` = tap (td, th, tw)."""
+    co, ci = w.shape[:2]
+    return w.permute(2, 3, 4, 1, 0).reshape(27, ci, co).to(dtype).contiguous()
+
+
+def flipped_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """dx weights: spatially flipped, io-swapped → (27, Co, Ci)."""
+    co, ci = w.shape[:2]
+    return w.flip(2, 3, 4).permute(2, 3, 4, 0, 1).reshape(27, co, ci).to(
+        dtype).contiguous()
+
+
+def unpack_weight_grad(dw: torch.Tensor) -> torch.Tensor:
+    """(27, Ci, Co) → (Co, Ci, 3, 3, 3)."""
+    _, ci, co = dw.shape
+    return dw.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path and the card-side reference)
+# ---------------------------------------------------------------------------
+
+
+def windows(x: torch.Tensor):
+    """Yield (t, window_t(x) as (N, C) f32) for the 27 SAME taps."""
+    b, d, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    for t, (td, th, tw) in enumerate(OFFSETS):
+        yield t, xp[:, td:td + d, th:th + h, tw:tw + w, :].reshape(-1, c).float()
+
+
+def conv3d_fwd_plain(x: torch.Tensor, wmat: torch.Tensor,
+                     bias: torch.Tensor | None) -> torch.Tensor:
+    """``bias + Σ_t window_t(x) @ wmat[t]`` in f32, cast to ``x.dtype``."""
+    b, d, h, w, _ = x.shape
+    co = wmat.shape[-1]
+    acc = torch.zeros(b * d * h * w, co, dtype=torch.float32, device=x.device)
+    if bias is not None:
+        acc += bias.float()
+    for t, win in windows(x):
+        acc += win @ wmat[t].float()
+    return acc.reshape(b, d, h, w, co).to(x.dtype)
+
+
+def conv3d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dw[t] = window_t(x)ᵀ @ g`` in f32 → (27, Ci, Co)."""
+    ci, co = x.shape[-1], g.shape[-1]
+    g2 = g.reshape(-1, co).float()
+    out = torch.empty(27, ci, co, dtype=torch.float32, device=x.device)
+    for t, win in windows(x):
+        out[t] = win.T @ g2
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def conv3d_fwd(x: torch.Tensor, wmat: torch.Tensor,
+               bias: torch.Tensor | None) -> torch.Tensor:
+    """SAME 3³ conv: x (B, D, H, W, Ci), wmat (27, Ci, Co), bias (Co,) or None,
+    all of one dtype → (B, D, H, W, Co) in that dtype."""
+    b, d, h, w, ci = x.shape
+    if wmat.shape[:2] != (27, ci):
+        raise ValueError(f"weights {tuple(wmat.shape)} do not fit Ci={ci}")
+    co = wmat.shape[2]
+    tensors = (x, wmat) if bias is None else (x, wmat, bias)
+    if _build.check_inputs(*tensors) == "cpu":
+        return conv3d_fwd_plain(x, wmat, bias)
+    out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
+    err = _fn("conv3d_fwd", x.dtype)(
+        x.data_ptr(), wmat.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        b, d, h, w, ci, co, _build.stream_ptr(x))
+    _build.check(err, "conv3d_fwd launch")
+    _build.launches["conv3d_fwd"] += 1
+    return out
+
+
+def dw_split(m: int, rows: int, co: int, sms: int) -> tuple[int, int]:
+    """(chunks, voxels per chunk) for the filter-grad reduction: enough
+    chunks that the partial launch has about four blocks per SM."""
+    tiles = math.ceil(rows / _TILE) * math.ceil(co / _TILE)
+    s = max(1, min(math.ceil(m / _BK), math.ceil(4 * sms / tiles)))
+    chunk = math.ceil(math.ceil(m / s) / _BK) * _BK
+    return math.ceil(m / chunk), chunk
+
+
+def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Filter gradient: x (B, D, H, W, Ci), g (B, D, H, W, Co) → (27, Ci, Co) f32."""
+    b, d, h, w, ci = x.shape
+    co = g.shape[-1]
+    if g.shape[:4] != x.shape[:4]:
+        raise ValueError(f"g {tuple(g.shape)} does not match x {tuple(x.shape)}")
+    if _build.check_inputs(x, g) == "cpu":
+        return conv3d_dw_plain(x, g)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    s, chunk = dw_split(b * d * h * w, 27 * ci, co, sms)
+    partial = torch.empty((s, 27 * ci, co), dtype=torch.float32, device=x.device)
+    out = torch.empty((27, ci, co), dtype=torch.float32, device=x.device)
+    err = _fn("conv3d_dw", x.dtype)(
+        x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        b, d, h, w, ci, co, s, chunk, _build.stream_ptr(x))
+    _build.check(err, "conv3d_dw launch")
+    _build.launches["conv3d_dw"] += 1
+    return out
+
+
+class _Conv3dFn(torch.autograd.Function):
+    """Mirrors ``conv3d_pallas``'s custom VJP (``pallas_conv.py:253-275``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.bias_dtype = bias.dtype
+        return conv3d_fwd(x, repack_weight(w, x.dtype),
+                          bias.to(x.dtype).contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_fwd(g, flipped_weight(w, g.dtype), None).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = unpack_weight_grad(conv3d_dw(x, g.to(x.dtype))).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum((0, 1, 2, 3)).to(ctx.bias_dtype)
+        return dx, dw, db
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """SAME 3³ conv, x NDHWC, w (Co, Ci, 3, 3, 3), bias (Co,); output in
+    ``x.dtype``, f32 accumulation."""
+    return _Conv3dFn.apply(x, w, bias)

@@ -1,0 +1,142 @@
+"""Reference-schema ``.pt`` checkpoints and the bridge from JAX variables
+(port of ``pcrlv2_tpu/train/checkpoint.py``).
+
+The port's ``PCRLv23d.state_dict()`` already is the reference schema, so a
+``.pt`` is ``{'opt', 'state_dict', 'optimizer', 'epoch'}`` written by
+``torch.save`` (reference ``train_3d.py:74-75``).  ``from_jax_variables``
+carries the JAX package's ``params``/``batch_stats`` trees (numpy leaves)
+into that schema; the mapping table is a copy of ``pcrlv23d_mapping``.
+
+Layouts (torch ← flax, channels-last):
+  Conv3d  (O, I, kd, kh, kw) ← (kd, kh, kw, I, O)
+  ConvT3d (I, O, kd, kh, kw) ← (kd, kh, kw, I, O)
+  Linear  (O, I)             ← (I, O)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_F2T = {
+    "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),
+    "convT3d": lambda w: np.transpose(w, (3, 4, 0, 1, 2)),
+    "linear": np.transpose,
+    "id": lambda w: w,
+    "stat": lambda w: w,
+}
+
+
+def _luconv_entries(tprefix: str, fpath: Tuple[str, ...], norm: str = "bn",
+                    act: str = "relu"):
+    entries = [
+        (f"{tprefix}.conv1.weight", fpath + ("conv1", "kernel"), "conv3d"),
+        (f"{tprefix}.conv1.bias", fpath + ("conv1", "bias"), "id"),
+        (f"{tprefix}.bn1.weight", fpath + ("bn1", "scale"), "id"),
+        (f"{tprefix}.bn1.bias", fpath + ("bn1", "bias"), "id"),
+    ]
+    if norm == "bn":
+        entries += [
+            (f"{tprefix}.bn1.running_mean", fpath + ("bn1", "mean"), "stat"),
+            (f"{tprefix}.bn1.running_var", fpath + ("bn1", "var"), "stat"),
+        ]
+    if act == "prelu":
+        entries.append((f"{tprefix}.activation.weight",
+                        fpath + ("PReLU_0", "alpha"), "id"))
+    return entries
+
+
+def _bn_entries(tprefix: str, fpath: Tuple[str, ...]):
+    return [
+        (f"{tprefix}.weight", fpath + ("scale",), "id"),
+        (f"{tprefix}.bias", fpath + ("bias",), "id"),
+        (f"{tprefix}.running_mean", fpath + ("mean",), "stat"),
+        (f"{tprefix}.running_var", fpath + ("var",), "stat"),
+    ]
+
+
+def pcrlv23d_mapping(norm: str = "bn", act: str = "relu"):
+    """(torch_key, flax_path, kind) for every PCRLv23d tensor."""
+    entries = []
+    for name in ["down_tr64", "down_tr128", "down_tr256", "down_tr512"]:
+        for i in (0, 1):
+            entries += _luconv_entries(f"{name}.ops.{i}", (name, f"ops{i}"),
+                                       norm, act)
+    for name in ["up_tr256", "up_tr128", "up_tr64"]:
+        entries += [
+            (f"{name}.up_conv.weight", (name, "up_conv", "kernel"), "convT3d"),
+            (f"{name}.up_conv.bias", (name, "up_conv", "bias"), "id"),
+        ]
+        for i in (0, 1):
+            entries += _luconv_entries(f"{name}.ops.{i}", (name, f"ops{i}"),
+                                       norm, act)
+        entries += _bn_entries(f"{name}.bn", (name, "bn"))
+        entries += [
+            (f"{name}.predictor_head.0.weight",
+             (name, "predictor_head", "fc1", "kernel"), "linear"),
+            (f"{name}.predictor_head.0.bias",
+             (name, "predictor_head", "fc1", "bias"), "id"),
+        ]
+        entries += _bn_entries(f"{name}.predictor_head.1",
+                               (name, "predictor_head", "bn"))
+        entries += [
+            (f"{name}.predictor_head.3.weight",
+             (name, "predictor_head", "fc2", "kernel"), "linear"),
+            (f"{name}.predictor_head.3.bias",
+             (name, "predictor_head", "fc2", "bias"), "id"),
+        ]
+        entries += _luconv_entries(f"{name}.deep_supervision_head",
+                                   (name, "deep_supervision_head"),
+                                   norm, "sigmoid")
+    entries += [
+        ("out_tr.final_conv.weight", ("out_tr", "final_conv", "kernel"), "conv3d"),
+        ("out_tr.final_conv.bias", ("out_tr", "final_conv", "bias"), "id"),
+    ]
+    return entries
+
+
+def from_jax_variables(variables: Mapping[str, Any], norm: str = "bn",
+                       act: str = "relu") -> Dict[str, torch.Tensor]:
+    """``{'params': …, 'batch_stats': …}`` of the JAX ``PCRLv23d`` (numpy
+    leaves) → the port's ``state_dict`` (CPU tensors).  BatchNorm step
+    counters have no flax analog and start at 0."""
+    out: Dict[str, torch.Tensor] = {}
+    for tkey, fpath, kind in pcrlv23d_mapping(norm, act):
+        node = variables["batch_stats" if kind == "stat" else "params"]
+        for p in fpath:
+            node = node[p]
+        val = _F2T[kind](np.asarray(node, dtype=np.float32))
+        out[tkey] = torch.from_numpy(np.array(val, copy=True))
+        if tkey.endswith(".running_var"):
+            out[tkey[:-len("running_var")] + "num_batches_tracked"] = (
+                torch.zeros((), dtype=torch.long))
+    return out
+
+
+def save_reference_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
+                              opt: Any = None, optimizer: Any = None,
+                              epoch: int = 0) -> None:
+    """Write the reference ``{'opt','state_dict','optimizer','epoch'}`` schema."""
+    tensors = {k: v.detach().cpu().clone() for k, v in state_dict.items()}
+    torch.save({"opt": opt, "state_dict": tensors, "optimizer": optimizer,
+                "epoch": epoch}, path)
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a reference-schema ``.pt`` (this program's own or the reference's)."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def export_pcrlv23d(model: torch.nn.Module, path: str, opt=None,
+                    epoch: int = 0) -> None:
+    save_reference_checkpoint(path, model.state_dict(), opt=opt, epoch=epoch)
+
+
+def import_pcrlv23d(path: str, model: torch.nn.Module) -> Dict[str, Any]:
+    """Load a reference-schema ``.pt`` into ``model`` (strict); returns the
+    checkpoint dict."""
+    ckpt = load_reference_checkpoint(path)
+    model.load_state_dict(ckpt["state_dict"], strict=True)
+    return ckpt

@@ -1,0 +1,48 @@
+"""Loss terms of the PCRLv2 objective (port of ``pcrlv2_tpu/train/losses.py``;
+reference ``train_3d.py:86-92,119-138``).
+
+The SimSiam level is an argument: the train step takes the sampled level
+indices as input (the trainer draws them), so one set of levels gives the
+same loss in both packages.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """Row-wise cosine similarity in f32, denominator clamped at ``eps``."""
+    a, b = a.float(), b.float()
+    dot = (a * b).sum(dim=1)
+    return dot / torch.clamp(a.norm(dim=1) * b.norm(dim=1), min=eps)
+
+
+def _pair_loss(pair1, pair2) -> torch.Tensor:
+    """-½·[cos(pre₁, sg(pro₂)) + cos(pre₂, sg(pro₁))], means over the batch."""
+    pro1, pre1 = pair1
+    pro2, pre2 = pair2
+    l1 = cosine_similarity(pre1, pro2.detach()).mean()
+    l2 = cosine_similarity(pre2, pro1.detach()).mean()
+    return -(l1 + l2) * 0.5
+
+
+def cos_loss(level: int, outputs1: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+             outputs2: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    """SimSiam cosine loss at decoder ``level`` (gradients flow only there)."""
+    return _pair_loss(outputs1[level], outputs2[level])
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean-squared error in f32."""
+    diff = pred.float() - target.float()
+    return (diff * diff).mean()
+
+
+def beta_schedule(epoch, period: float = 240.0) -> float:
+    """β = ½(1 + cos(π·epoch/240)) (reference ``train_3d.py:136``)."""
+    return 0.5 * (1.0 + math.cos(math.pi * epoch / period))
