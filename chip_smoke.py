@@ -9,22 +9,36 @@ Phases, any failure exits non-zero without the final line:
 2. build the CUDA kernels from ``pcrlv2_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the build time and ``ptxas`` report;
 3. hold every kernel against its plain PyTorch version at every shape the
-   3D pretraining path gives it, in f32 (TF32 off) and bf16;
+   3D pretraining path gives it, in f32 (TF32 off) and bf16: the conv
+   forward/dx (#1), filter gradient (#2), heads (#3, #4), and the packed
+   (#6, forward and dx) and im2col (#5, forward) convs;
 4. time each kernel, its plain version and, as a yardstick only, the one
    PyTorch call that computes the same function (cuDNN);
 5. check a small forward of the model on the card against the same weights
    on the CPU;
 6. run the port's CLI at full width (``--synthetic --d 3 --b 4 --epochs 0
-   --steps_per_epoch 10``) in f32 and with ``--amp``, with every launch
-   counter set to 0 just before and read just after; every loss must be
-   finite, every kernel launched, and the ``.pt`` must load strictly.  The
-   step time is the median over the steps after the first ``WARMUP`` of
-   each step's own time, recovered from the running average ``BT`` that the
-   CLI logs after every step;
-7. run the same CLI path (``cli.main.prepare`` → ``run_training``) again
-   under ``torch.profiler`` for the device time per step by kernel group,
-   over ``PROFILED`` steps after the first ``WARMUP``, and the device's
-   busy share (that time over the unprofiled step time).
+   --steps_per_epoch 10``) under ``PCRL_CONV3D=pallas`` (the default) in
+   f32 and with ``--amp``, and under ``packed`` and ``im2col`` in f32, with
+   every launch counter set to 0 just before each run and read just after:
+   the launches must be those of the selector (``expected_launches``),
+   every loss finite, and the ``.pt`` must load strictly.
+   The step time is the median over the steps after the first ``WARMUP``
+   of each step's own time, recovered from the running average ``BT`` that
+   the CLI logs after every step;
+7. run the same CLI training path (``cli.main.prepare`` → ``Trainer`` behind
+   ``device_prefetch``) again under ``torch.profiler`` for each of those
+   runs: device time per step by kernel group over ``PROFILED`` steps after
+   the first ``WARMUP``, and the device's busy share (that time over the
+   unprofiled step time);
+8. the disk path under ``PCRL_CONV3D=packed``: write a processed-LUNA tree
+   (``write_synthetic_luna_tree``, 10 subsets × 2 UIDs × 3 pairs, so one
+   epoch of folds 0-6 is 10 steps at b=4), run the CLI with ``--data
+   --epochs 1 --eval_every 1 --eval_batches 2 --save_every 1``, then again
+   with ``--resume <output>/train_state --epochs 2``: it must resume at
+   epoch 2, every eval loss be finite, the launch counts be those of the
+   steps and eval batches run, and the ``.pt`` load strictly; step time
+   (median of steps 4-10 of epoch 0), ``DT``, and the busy share of the
+   same path under the profiler.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -34,6 +48,7 @@ bounds), the CLI runs and the profiles go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -69,7 +84,7 @@ CONVS = [("down_tr64.ops.0", 1, 32, 0), ("down_tr64.ops.1", 32, 64, 0),
          ("up_tr64.ops.0", 128, 64, 0), ("up_tr64.ops.1", 64, 64, 0)]
 HEADS = [("up_tr256.head", 256, 2), ("up_tr128.head", 128, 1), ("up_tr64.head", 64, 0)]
 BATCH = 4
-STEPS = 10     # CLI steps per precision (phase 6)
+STEPS = 10     # CLI steps per run (phase 6)
 WARMUP = 3     # first CLI steps left out of the step time and the profile
 PROFILED = 4   # steps under the profiler (phase 7)
 # (batch, input size): the two global views run at B each, the 6 local
@@ -78,6 +93,8 @@ CALLS = {"global": (BATCH, (64, 64, 32)), "local": (6 * BATCH, (16, 16, 16))}
 
 #: device-kernel name fragment → group reported by phase 7
 GROUPS = [("conv3d_fwd_kernel", "conv3d_fwd (#1, fwd and dx)"),
+          ("conv3d_packed_kernel", "conv3d_packed (#6, fwd and dx)"),
+          ("conv3d_im2col_kernel", "conv3d_im2col (#5, fwd)"),
           ("conv3d_dw_partial", "conv3d_dw (#2) partials"),
           ("head_fwd_kernel", "head_fwd (#3)"),
           ("head_bwd_kernel", "head_bwd (#4)"),
@@ -91,7 +108,44 @@ KERNELS = {
     "conv3d_dw": ("pcrlv2_tpu_torch/csrc/conv3d.cu", "pcrlv2_tpu/ops/pallas_conv.py:154"),
     "head_fwd": ("pcrlv2_tpu_torch/csrc/head_conv.cu", "pcrlv2_tpu/ops/head_conv.py:140"),
     "head_bwd": ("pcrlv2_tpu_torch/csrc/head_conv.cu", "pcrlv2_tpu/ops/head_conv.py:225"),
+    "conv3d_im2col": ("pcrlv2_tpu_torch/csrc/conv3d_packed.cu",
+                      "pcrlv2_tpu/ops/pallas_conv.py:307"),
+    "conv3d_packed": ("pcrlv2_tpu_torch/csrc/conv3d_packed.cu",
+                      "pcrlv2_tpu/ops/pallas_conv.py:380"),
 }
+
+# Launches per training step: the 14 3³ convs with Co > 1 run forward 3
+# times (x1, x2, locals) = 42; their filter gradients are 42 and their dx 39
+# (the stem's input needs no gradient) when every decoder level's features
+# get a gradient, fewer in a step whose random SimSiam levels leave a
+# decoder stage of x2 or of the locals out of the loss (its convs then run
+# neither dw nor dx); 9 head forwards and 1 head backward (x1's selected
+# mask).  An eval batch runs the 42 forwards and 9 head forwards only.
+# Which kernel runs the forward and the dx follows PCRL_CONV3D:
+FWD_DX = {"pallas": ("conv3d_fwd", "conv3d_fwd"),
+          "packed": ("conv3d_packed", "conv3d_packed"),
+          "im2col": ("conv3d_im2col", "conv3d_fwd")}
+
+
+def expected_launches(selector: str, steps: int, eval_batches: int, dw: int) -> dict:
+    """The counts a run of ``steps`` train steps and ``eval_batches`` eval
+    batches must show, given its ``dw`` filter-gradient launches."""
+    if not 3 * steps < dw <= 42 * steps:
+        raise AssertionError(f"{dw} filter gradients in {steps} steps")
+    expect = {k: 0 for k in KERNELS}
+    expect.update(conv3d_dw=dw, head_fwd=9 * (steps + eval_batches), head_bwd=steps)
+    fwd, dx = FWD_DX[selector]
+    expect[fwd] += 42 * (steps + eval_batches)
+    expect[dx] += dw - 3 * steps
+    return expect
+
+
+# (run name, PCRL_CONV3D, --amp) of phases 6 and 7
+RUNS = [("f32", "pallas", False), ("amp", "pallas", True),
+        ("packed", "packed", False), ("im2col", "im2col", False)]
+#: the run whose count is each kernel's ``launches`` in the kernels line
+LAUNCHED_IN = {"conv3d_fwd": "f32", "conv3d_dw": "f32", "head_fwd": "f32",
+               "head_bwd": "f32", "conv3d_im2col": "im2col", "conv3d_packed": "packed"}
 
 
 def level_shape(call: str, level: int):
@@ -121,6 +175,7 @@ def conv_cases(dtype):
     import torch.nn.functional as F
 
     from pcrlv2_tpu_torch.ops import conv3d_kernel as ck
+    from pcrlv2_tpu_torch.ops import conv3d_packed as cp
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -145,17 +200,25 @@ def conv_cases(dtype):
                     [0] * 3, 1, mask)
 
             label = f"{call} {name} {tuple(shp)} {ci}->{co}"
-            yield ("conv3d_fwd", label + " fwd",
-                   lambda x=x, wm=wm, bias=bias: ck.conv3d_fwd(x, wm, bias),
-                   lambda x=x, wm=wm, bias=bias: ck.conv3d_fwd_plain(x, wm, bias),
-                   lambda x_nc=x_nc, w_nc=w_nc, bias=bias: F.conv3d(x_nc, w_nc, bias, padding=1),
-                   flops, es * (m * (ci + co) + 27 * ci * co + co), ("out",))
-            if name != "down_tr64.ops.0":  # the stem's input needs no gradient
-                yield ("conv3d_fwd", label + " dx",
-                       lambda g=g, wt=wt: ck.conv3d_fwd(g, wt, None),
-                       lambda g=g, wt=wt: ck.conv3d_fwd_plain(g, wt, None),
-                       lambda f=lib_bwd: f([True, False, False]),
-                       flops, es * (m * (ci + co) + 27 * ci * co), ("out",))
+            fwd_bytes = es * (m * (ci + co) + 27 * ci * co + co)
+            dx_bytes = es * (m * (ci + co) + 27 * ci * co)
+            for kernel, kfn, pfn, dx in [
+                    ("conv3d_fwd", ck.conv3d_fwd, ck.conv3d_fwd_plain, True),
+                    ("conv3d_packed", cp.conv3d_packed_fwd, cp.conv3d_packed_plain, True),
+                    ("conv3d_im2col", cp.conv3d_im2col_fwd, cp.conv3d_im2col_plain, False)]:
+                yield (kernel, label + " fwd",
+                       lambda x=x, wm=wm, bias=bias, f=kfn: f(x, wm, bias),
+                       lambda x=x, wm=wm, bias=bias, f=pfn: f(x, wm, bias),
+                       lambda x_nc=x_nc, w_nc=w_nc, bias=bias: F.conv3d(x_nc, w_nc, bias,
+                                                                        padding=1),
+                       flops, fwd_bytes, ("out",))
+                # the stem's input needs no gradient; im2col's dx is #1's
+                if dx and name != "down_tr64.ops.0":
+                    yield (kernel, label + " dx",
+                           lambda g=g, wt=wt, f=kfn: f(g, wt, None),
+                           lambda g=g, wt=wt, f=pfn: f(g, wt, None),
+                           lambda f=lib_bwd: f([True, False, False]),
+                           flops, dx_bytes, ("out",))
             yield ("conv3d_dw", label + " dw",
                    lambda x=x, g=g: ck.conv3d_dw(x, g),
                    lambda x=x, g=g: ck.conv3d_dw_plain(x, g),
@@ -281,7 +344,50 @@ def cli_argv(amp: bool, out_dir: str, steps: int):
              "--seed", "0", "--output", out_dir] + (["--amp"] if amp else []))
 
 
-def run_cli(amp: bool, out_dir: str):
+@contextlib.contextmanager
+def conv_selector(value: str):
+    """``PCRL_CONV3D=value`` for the duration (the port reads it per call)."""
+    old = os.environ.get("PCRL_CONV3D")
+    os.environ["PCRL_CONV3D"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PCRL_CONV3D"]
+        else:
+            os.environ["PCRL_CONV3D"] = old
+
+
+def launched(selector: str, steps: int, eval_batches: int, what: str) -> dict:
+    """The launch counters against ``expected_launches``."""
+    from pcrlv2_tpu_torch.ops import _build
+
+    counts = {k: _build.launches[k] for k in KERNELS}
+    expect = expected_launches(selector, steps, eval_batches, counts["conv3d_dw"])
+    if counts != expect:
+        raise AssertionError(f"{what}: launches {counts}, expected {expect}")
+    return counts
+
+
+def step_rows(metrics_path: str, epoch: int = 0):
+    rows = [json.loads(s) for s in open(metrics_path)]
+    steps = [r for r in rows if "iter" in r and r["epoch"] == epoch]
+    for r in steps:
+        for k in ("loss", "mg_loss", "cos_loss", "local_loss"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"non-finite {k} at step {r['iter']}: {r[k]}")
+        if r["skipped"]:
+            raise AssertionError(f"step {r['iter']} was skipped by the loss guard")
+    return rows, steps
+
+
+def step_times(steps) -> list:
+    """Each step's own time from the running average ``BT`` (log_every=1)."""
+    avg = [r["BT"] for r in steps]
+    return [avg[0]] + [(k + 1) * avg[k] - k * avg[k - 1] for k in range(1, len(avg))]
+
+
+def run_cli(selector: str, amp: bool, out_dir: str):
     """Phase 6: the port's CLI in this process, counters read around it."""
     import torch
 
@@ -291,34 +397,79 @@ def run_cli(amp: bool, out_dir: str):
     from pcrlv2_tpu_torch.train.checkpoint import import_pcrlv23d
 
     torch.cuda.reset_peak_memory_stats()
-    _build.launches.clear()
-    t0 = time.perf_counter()
-    cli_main(cli_argv(amp, out_dir, STEPS))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {k: _build.launches[k] for k in KERNELS}
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"main path ({'amp' if amp else 'f32'}) launched no {missing}")
-    rows = [json.loads(s) for s in open(os.path.join(out_dir, "metrics.jsonl"))]
-    steps = [r for r in rows if "iter" in r]
+    with conv_selector(selector):
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        cli_main(cli_argv(amp, out_dir, STEPS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launched(selector, STEPS, 0, f"CLI under {selector}{' --amp' if amp else ''}")
+    _, steps = step_rows(os.path.join(out_dir, "metrics.jsonl"))
     if len(steps) != STEPS:
         raise AssertionError(f"expected {STEPS} logged steps, got {len(steps)}")
-    for r in steps:
-        for k in ("loss", "mg_loss", "cos_loss", "local_loss"):
-            if not math.isfinite(r[k]):
-                raise AssertionError(f"non-finite {k} at step {r['iter']}: {r[k]}")
-        if r["skipped"]:
-            raise AssertionError(f"step {r['iter']} was skipped by the loss guard")
     fresh = PCRLv23d(device="cuda", seed=1)
     import_pcrlv23d(os.path.join(out_dir, "pcrlv2_luna_pretask_1.0_0.pt"), fresh)
-    # BT is the running average over the epoch's steps (log_every=1)
-    avg = [r["BT"] for r in steps]
-    step_s = [avg[0]] + [(k + 1) * avg[k] - k * avg[k - 1] for k in range(1, len(avg))]
+    step_s = step_times(steps)
     return {"counts": counts, "wall_s": wall, "step_s": step_s,
             "step_s_median": statistics.median(step_s[WARMUP:]),
+            "dt_s": [r["DT"] for r in steps],
             "losses": [r["loss"] for r in steps],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def run_disk(tmp: str):
+    """Phase 8: the CLI on a processed tree under ``packed``: train, eval,
+    save, then resume from the saved train state."""
+    import torch
+
+    from pcrlv2_tpu_torch.cli.main import main as cli_main
+    from pcrlv2_tpu_torch.data.pipeline import write_synthetic_luna_tree
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.train.checkpoint import import_pcrlv23d
+
+    tree, out = os.path.join(tmp, "tree"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    write_synthetic_luna_tree(tree, n_subsets=10, uids_per_subset=2, pairs_per_uid=3)
+    write_s = time.perf_counter() - t0
+    argv = disk_argv(tree, out)
+    state_dir = os.path.join(out, "train_state")
+    # 42 train crops: 10 steps per epoch; the resumed run trains epoch 2 only
+    counts, runs = [], [(argv + ["--epochs", "1"], 2),
+                        (argv + ["--epochs", "2", "--resume", state_dir], 1)]
+    with conv_selector("packed"):
+        for run_argv, epochs in runs:
+            _build.launches.clear()
+            cli_main(run_argv)
+            torch.cuda.synchronize()
+            counts.append(launched("packed", STEPS * epochs, 2 * epochs,
+                                   "disk CLI under packed"))
+    rows = [json.loads(s) for s in open(os.path.join(out, "metrics.jsonl"))]
+    per_epoch = {e: step_rows(os.path.join(out, "metrics.jsonl"), e)[1] for e in (0, 1, 2)}
+    if [len(v) for v in per_epoch.values()] != [STEPS] * 3:
+        raise AssertionError(f"steps per epoch {[len(v) for v in per_epoch.values()]}")
+    evals = [r for r in rows if "eval" in r]
+    if [r["epoch"] for r in evals] != [0, 1, 2] or not all(
+            math.isfinite(v) for r in evals for v in r["eval"].values()):
+        raise AssertionError(f"eval rows {evals}")
+    state = torch.load(os.path.join(state_dir, "state.pt"), weights_only=True)
+    if (state["epoch"], state["step"]) != (2, 3 * STEPS):
+        raise AssertionError(f"train state at epoch {state['epoch']} step {state['step']}")
+    import_pcrlv23d(os.path.join(out, "pcrlv2_luna_pretask_1.0_0.pt"),
+                    PCRLv23d(device="cuda", seed=1))
+    step_s = step_times(per_epoch[0])
+    return {"tree_write_s": write_s, "counts": counts, "step_s": step_s,
+            "step_s_median": statistics.median(step_s[WARMUP:]),
+            "dt_s": [r["DT"] for r in per_epoch[0]],
+            "epoch0_data_time_s": next(r["data_time"] for r in rows
+                                       if r.get("epoch") == 0 and "epoch_time" in r),
+            "evals": [r["eval"] for r in evals], "tree": tree}
+
+
+def disk_argv(tree: str, out: str):
+    return ["--data", tree, "--d", "3", "--n", "luna", "--phase", "pretask",
+            "--b", str(BATCH), "--eval_every", "1", "--eval_batches", "2",
+            "--save_every", "1", "--log_every", "1", "--seed", "0", "--output", out]
 
 
 def _kernel_us(evt) -> float:
@@ -334,31 +485,37 @@ def _kernel_us(evt) -> float:
     return 0.0
 
 
-def profile_cli(amp: bool, out_dir: str, step_s: float):
-    """Phase 7: the CLI's training path under ``torch.profiler``; the loader
-    marks each step's start (after a device sync), and the profile holds
-    ``PROFILED`` steps after the first ``WARMUP``."""
+def profile_cli(argv, step_s: float):
+    """Phase 7: the CLI's training path under ``torch.profiler``: the
+    ``Trainer`` that ``run_training`` builds, fed through ``device_prefetch``;
+    each step's start is marked on the consumer side (after a device sync),
+    and the profile holds ``PROFILED`` steps after the first ``WARMUP``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from pcrlv2_tpu_torch.cli.main import prepare
-    from pcrlv2_tpu_torch.train.trainer import run_training
+    from pcrlv2_tpu_torch.data.pipeline import device_prefetch
+    from pcrlv2_tpu_torch.train.trainer import Trainer
 
-    model, cfg, loader, aug_fn, device = prepare(
-        cli_argv(amp, out_dir, WARMUP + PROFILED + 1))
+    model, cfg, loaders, aug_fn, device = prepare(argv)
+    trainer = Trainer(model, cfg, aug_fn, device)
 
-    class StepMarked:
-        def epoch(self, epoch):
-            for batch in loader.epoch(epoch):
-                torch.cuda.synchronize()
-                prof.step()
-                yield batch
+    def marked(batches):
+        for batch in batches:
+            torch.cuda.synchronize()
+            prof.step()
+            yield batch
 
     # profiler period 0 ends at the first batch, so period k is step k − 1
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=WARMUP, warmup=1, active=PROFILED,
-                                   repeat=1)) as prof:
-        run_training(model, cfg, StepMarked(), aug_fn, device)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=WARMUP, warmup=1, active=PROFILED,
+                                       repeat=1)) as prof:
+            with contextlib.closing(device_prefetch(
+                    loaders["train"].epoch(0), device)) as batches:
+                trainer.train_epoch(0, marked(batches))
+    finally:
+        trainer.logger.close()
     # the profiler's own step annotation also shows as a device entry
     kernels = [(e.key, _kernel_us(e), e.count) for e in prof.key_averages()
                if _kernel_us(e) > 0 and not e.key.startswith("ProfilerStep")]
@@ -375,6 +532,14 @@ def profile_cli(amp: bool, out_dir: str, step_s: float):
             "top_kernels": [{"name": n[:120], "ms_per_step": us / 1e3 / PROFILED,
                              "launches_per_step": c / PROFILED}
                             for n, us, c in sorted(kernels, key=lambda k: -k[1])[:15]]}
+
+
+def print_profile(name: str, p: dict):
+    print(f"[7] profile {name}: device {p['device_ms_per_step']:.2f} ms/step, "
+          f"busy {p['busy_share']:.1%}; " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(
+                  p["ms_per_step_by_group"].items(), key=lambda kv: -kv[1]) if v),
+          flush=True)
 
 
 def main() -> int:
@@ -425,31 +590,43 @@ def main() -> int:
         print(f"[5] model forward on the card vs CPU: max abs err {err:.2e}")
 
         runs = {}
-        for amp in (False, True):
+        for name, selector, amp in RUNS:
             with tempfile.TemporaryDirectory() as tmp:
-                runs["amp" if amp else "f32"] = r = run_cli(amp, tmp)
-            print(f"[6] CLI {'--amp' if amp else 'f32'}: launches {r['counts']}, "
-                  f"step s {[round(s, 4) for s in r['step_s']]} (median after "
-                  f"{WARMUP}: {r['step_s_median']:.4f}), losses "
-                  f"{[round(x, 5) for x in r['losses']]}, peak {r['peak_mem_gib']:.2f} GiB",
-                  flush=True)
+                runs[name] = r = run_cli(selector, amp, tmp)
+            print(f"[6] CLI PCRL_CONV3D={selector}{' --amp' if amp else ''}: launches "
+                  f"{ {k: v / STEPS for k, v in r['counts'].items()} } per step, step s "
+                  f"{[round(s, 4) for s in r['step_s']]} (median after {WARMUP}: "
+                  f"{r['step_s_median']:.4f}), DT {[round(s, 4) for s in r['dt_s']]}, "
+                  f"losses {[round(x, 5) for x in r['losses']]}, peak "
+                  f"{r['peak_mem_gib']:.2f} GiB", flush=True)
 
         profiles = {}
-        for amp in (False, True):
-            name = "amp" if amp else "f32"
-            with tempfile.TemporaryDirectory() as tmp:
-                profiles[name] = p = profile_cli(amp, tmp, runs[name]["step_s_median"])
-            print(f"[7] profile {name}: device {p['device_ms_per_step']:.2f} ms/step, "
-                  f"busy {p['busy_share']:.1%}; " + ", ".join(
-                      f"{k} {v:.2f}" for k, v in sorted(
-                          p["ms_per_step_by_group"].items(), key=lambda kv: -kv[1])),
-                  flush=True)
+        for name, selector, amp in RUNS:
+            with tempfile.TemporaryDirectory() as tmp, conv_selector(selector):
+                profiles[name] = p = profile_cli(cli_argv(amp, tmp, WARMUP + PROFILED + 1),
+                                                 runs[name]["step_s_median"])
+            print_profile(name, p)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            runs["disk"] = d = run_disk(tmp)
+            with conv_selector("packed"):
+                profiles["disk"] = p = profile_cli(
+                    disk_argv(d.pop("tree"), os.path.join(tmp, "prof")) + ["--epochs", "0"],
+                    d["step_s_median"])
+        print(f"[8] disk CLI under packed: trained, evaluated and saved epochs 0-1, "
+              f"resumed at epoch 2; launches {d['counts']}; epoch-0 step s "
+              f"{[round(s, 4) for s in d['step_s']]} (median after {WARMUP}: "
+              f"{d['step_s_median']:.4f}), DT {[round(s, 4) for s in d['dt_s']]} "
+              f"(epoch mean {d['epoch0_data_time_s']:.4f}); eval losses "
+              f"{[round(e['loss'], 5) for e in d['evals']]}", flush=True)
+        print_profile("disk", p)
 
         kernels = []
         for name, (src, replaces) in KERNELS.items():
             s = summary[name]
             kernels.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": replaces, "launches": runs["f32"]["counts"][name],
+                            "replaces": replaces,
+                            "launches": runs[LAUNCHED_IN[name]]["counts"][name],
                             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                             "bound_by": ("operations" if s["ops_ms"] >= s["bytes_ms"]

@@ -1,29 +1,43 @@
 """Command-line entry point of the port (flag names of reference ``main.py``
 and ``pcrlv2_tpu/cli/main.py``).
 
-    python -m pcrlv2_tpu_torch.cli.main --synthetic --d 3 --phase pretask \
-        [--amp] [--device cpu] [--b 4 --epochs 0 --steps_per_epoch 3]
+    PCRL_CONV3D=packed python -m pcrlv2_tpu_torch.cli.main --d 3 --n luna \
+        --phase pretask --data <processed tree> [--eval_every 1] \
+        [--save_every 1] [--resume <output>/train_state] [--amp] [--device cpu]
+    python -m pcrlv2_tpu_torch.cli.main --synthetic --d 3 [--b 4 --epochs 0 \
+        --steps_per_epoch 3]
 
 Runs 3D LUNA pretraining on one CUDA device (``--device cpu`` only when
-asked).  Paths not ported yet stop with the ROADMAP item that ports them.
+asked).  ``PCRL_CONV3D`` (``pallas``, the default, ``packed`` or ``im2col``)
+picks the 3³ conv kernels.  Paths not ported yet stop with the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
+import os
+from functools import partial
+
+import numpy as np
 
 from pcrlv2_tpu_torch.core.device import resolve_device
 from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
 from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
-from pcrlv2_tpu_torch.data.pipeline import synthetic_luna_batch
+from pcrlv2_tpu_torch.data.make_manifests import write_luna_manifest
+from pcrlv2_tpu_torch.data.manifests import get_luna_list, get_luna_pretrain_list
+from pcrlv2_tpu_torch.data.pipeline import HostLoader, load_luna_sample, synthetic_luna_batch
 from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 from pcrlv2_tpu_torch.train.trainer import TrainConfig, run_training
+
+DEFAULT_TRAIN_LIST = "train_val_txt/luna_train.txt"
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="PCRLv2 pretraining (PyTorch/CUDA)")
     parser.add_argument("--data", metavar="DIR", default=None,
-                        help="processed LUNA tree (not ported yet)")
+                        help="processed LUNA tree (luna_preprocess.py output)")
     parser.add_argument("--model", default="pcrlv2")
     parser.add_argument("--phase", default="pretask", help="pretask | finetune")
     parser.add_argument("--b", default=16, type=int, help="batch size")
@@ -32,8 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output", default="./out", help="checkpoint dir")
     parser.add_argument("--n", default="luna", help="dataset name")
     parser.add_argument("--d", default=3, type=int, help="2d or 3d pipeline")
+    parser.add_argument("--workers", default=4, type=int, help="host loader threads")
     parser.add_argument("--gpus", default="0", help="device list (one device)")
-    parser.add_argument("--ratio", default=1.0, type=float)
+    parser.add_argument("--ratio", default=1.0, type=float,
+                        help="fraction of the train UIDs used for pretraining")
     parser.add_argument("--momentum", default=0.9, type=float)
     parser.add_argument("--weight_decay", default=1e-4, type=float)
     parser.add_argument("--seed", default=42, type=int)
@@ -41,12 +57,29 @@ def build_parser() -> argparse.ArgumentParser:
                         help="bf16 compute, f32 parameters")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--train_list", default=DEFAULT_TRAIN_LIST,
+                        help="UID list; derived from --data (into --output) "
+                             "when the default path is missing")
     parser.add_argument("--synthetic", action="store_true", default=False,
                         help="train on synthetic data")
     parser.add_argument("--steps_per_epoch", default=None, type=int,
-                        help="batches per epoch of synthetic data (default 4)")
+                        help="cap of batches per epoch (synthetic data: "
+                             "batches per epoch, default 4)")
     parser.add_argument("--log_every", default=10, type=int)
-    parser.add_argument("--resume", default=None, help="(not ported yet)")
+    parser.add_argument("--resume", default=None, metavar="DIR",
+                        help="train-state directory to continue from "
+                             "(<output>/train_state of an earlier run)")
+    parser.add_argument("--eval_every", default=0, type=int,
+                        help="epochs between eval-loss passes over the held-"
+                             "out folds 7-9 (0 = off)")
+    parser.add_argument("--eval_batches", default=0, type=int,
+                        help="cap of batches per eval pass (0 = the whole fold)")
+    parser.add_argument("--save_every", default=0, type=int,
+                        help="also save the train state every N epochs (0 = "
+                             "only at the reference epochs, %%100 == 0 or 240)")
+    parser.add_argument("--h2d_dtype", default="auto", choices=("auto", "f32", "f16"),
+                        help="dtype raw 3D batches are read and moved in; auto = "
+                             "f16 with --amp, f32 otherwise")
     parser.add_argument("--mixup", default=None, type=float, help="(not ported yet)")
     parser.add_argument("--spatial", default=1, type=int, help="(not ported yet)")
     parser.add_argument("--multihost", action="store_true", default=False,
@@ -71,9 +104,56 @@ class SyntheticLoader:
                 self.batch_size, seed=self.seed + epoch * self.steps + i)
 
 
+class Capped:
+    """At most ``steps`` batches of each of ``inner``'s epochs (the JAX CLI's
+    ``_limit`` for ``--steps_per_epoch`` on real data)."""
+
+    def __init__(self, inner, steps: int):
+        self.inner, self.steps = inner, steps
+
+    def epoch(self, epoch: int):
+        return itertools.islice(self.inner.epoch(epoch), self.steps)
+
+
+def luna_pretask_loaders(args) -> dict:
+    """Train and eval loaders over a processed LUNA tree (the JAX CLI's
+    ``DataGenerator.pcrlv2_luna_pretask``): train = the top ``--ratio`` of
+    the UID list in folds 0-6, shuffled per epoch, ragged tail dropped;
+    eval = folds 7-9 in order, every sample (``None`` without any)."""
+    if not os.path.exists(args.train_list):
+        # the UID list is a dataset-release artifact; a processed tree
+        # carries the same UIDs, so derive the list (into the run's output
+        # dir when the path is the default) instead of stopping
+        if args.train_list == DEFAULT_TRAIN_LIST:
+            args.train_list = os.path.join(args.output, "luna_train.txt")
+        if not os.path.exists(args.train_list):
+            uids = write_luna_manifest(args.data, args.train_list)
+            print(f"==> train list not found; derived {len(uids)} UIDs from "
+                  f"{args.data} into {args.train_list}")
+    uids = get_luna_pretrain_list(args.ratio, args.train_list)
+    x_train, x_valid, _ = get_luna_list(
+        args.data, train_fold=range(7), valid_fold=range(7, 10),
+        test_fold=range(7, 10), suffix="_global_", file_list=uids)
+    print(f"total train images {len(x_train)}, validation images {len(x_valid)}")
+    h2d = args.h2d_dtype if args.h2d_dtype != "auto" else ("f16" if args.amp else "f32")
+    if h2d == "f16":
+        print("==> h2d_dtype f16: raw batches are read and moved at half width "
+              "(--h2d_dtype f32 for the exact-parity path)")
+    read_fn = partial(load_luna_sample, dtype=np.float16 if h2d == "f16" else np.float32)
+    train = HostLoader(x_train, args.b, read_fn, shuffle=True, seed=args.seed,
+                       num_workers=args.workers)
+    # drop_last=False: dropping the ragged tail would leave up to b-1
+    # held-out samples out of every pass
+    evaluate = (HostLoader(x_valid, args.b, read_fn, shuffle=False, seed=args.seed,
+                           num_workers=args.workers, drop_last=False)
+                if x_valid else None)
+    return {"train": train, "eval": evaluate}
+
+
 def prepare(argv=None):
-    """Parse ``argv`` and build what ``main`` trains: ``(model, cfg, loader,
-    aug_fn, device)`` for ``run_training``."""
+    """Parse ``argv`` and build what ``main`` trains: ``(model, cfg,
+    loaders, aug_fn, device)``, ``loaders`` = ``{"train", "eval"}`` for
+    ``run_training``."""
     args = build_parser().parse_args(argv)
     if args.d != 3:
         _not_ported(f"--d {args.d}", "8 (2D chest path)")
@@ -81,16 +161,17 @@ def prepare(argv=None):
         raise SystemExit(f"no trainer for (model={args.model}, phase={args.phase})")
     if args.phase == "finetune":
         _not_ported("--phase finetune", "9")
-    if not args.synthetic:
-        _not_ported("--data (the LUNA reader)", "6; pass --synthetic")
     if args.spatial > 1:
         _not_ported("--spatial", "11")
     if args.multihost or len([g for g in str(args.gpus).split(",") if g]) > 1:
         _not_ported("training on more than one device", "7")
-    if args.resume:
-        _not_ported("--resume", "6")
     if args.mixup is not None:
         _not_ported("--mixup", "12")
+    if not args.synthetic:
+        if not args.data:
+            raise SystemExit("--data is required (or pass --synthetic)")
+        if args.n != "luna":
+            _not_ported(f"--n {args.n} with --data", "8 (2D chest path)")
 
     device = resolve_device(args.device)
     policy = DEFAULT_POLICY if args.amp else PARITY_POLICY
@@ -98,16 +179,25 @@ def prepare(argv=None):
                       epochs=args.epochs, lr=args.lr, output=args.output,
                       ratio=args.ratio, momentum=args.momentum,
                       weight_decay=args.weight_decay, seed=args.seed,
-                      amp=args.amp, log_every=args.log_every)
+                      amp=args.amp, log_every=args.log_every,
+                      eval_every=args.eval_every, eval_batches=args.eval_batches,
+                      save_every=args.save_every, resume=args.resume)
+    if args.synthetic:
+        loaders = {"train": SyntheticLoader(args.b, args.steps_per_epoch or 4, args.seed),
+                   "eval": None}
+    else:
+        loaders = luna_pretask_loaders(args)
+        if args.steps_per_epoch is not None:
+            loaders["train"] = Capped(loaders["train"], args.steps_per_epoch)
     model = PCRLv23d(policy=policy, seed=args.seed, device=device)
-    loader = SyntheticLoader(args.b, args.steps_per_epoch or 4, args.seed)
-    return model, cfg, loader, make_luna_aug_fn(), device
+    return model, cfg, loaders, make_luna_aug_fn(), device
 
 
 def main(argv=None) -> None:
-    model, cfg, loader, aug_fn, device = prepare(argv)
+    model, cfg, loaders, aug_fn, device = prepare(argv)
     print(f"training pcrlv2 3d on {device}")
-    run_training(model, cfg, loader, aug_fn, device)
+    run_training(model, cfg, loaders["train"], aug_fn, device,
+                 eval_loader=loaders["eval"])
 
 
 if __name__ == "__main__":

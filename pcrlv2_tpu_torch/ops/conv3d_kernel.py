@@ -160,15 +160,18 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 class _Conv3dFn(torch.autograd.Function):
-    """Mirrors ``conv3d_pallas``'s custom VJP (``pallas_conv.py:253-275``)."""
+    """Mirrors the custom VJPs of ``conv3d_pallas`` (``pallas_conv.py:253-275``)
+    and its packed and im2col siblings: ``fwd`` computes the forward, ``dx``
+    the input gradient on flipped weights (both take ``conv3d_fwd``'s
+    arguments), ``conv3d_dw`` the filter gradient."""
 
     @staticmethod
-    def forward(ctx, x, w, bias):
+    def forward(ctx, x, w, bias, fwd, dx):
         x = x.contiguous()
         ctx.save_for_backward(x, w)
         ctx.bias_dtype = bias.dtype
-        return conv3d_fwd(x, repack_weight(w, x.dtype),
-                          bias.to(x.dtype).contiguous())
+        ctx.dx = dx
+        return fwd(x, repack_weight(w, x.dtype), bias.to(x.dtype).contiguous())
 
     @staticmethod
     def backward(ctx, g):
@@ -176,15 +179,17 @@ class _Conv3dFn(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv3d_fwd(g, flipped_weight(w, g.dtype), None).to(x.dtype)
+            dx = ctx.dx(g, flipped_weight(w, g.dtype), None).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = unpack_weight_grad(conv3d_dw(x, g.to(x.dtype))).to(w.dtype)
         if ctx.needs_input_grad[2]:
             db = g.float().sum((0, 1, 2, 3)).to(ctx.bias_dtype)
-        return dx, dw, db
+        return dx, dw, db, None, None
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def conv3d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
+           fwd=conv3d_fwd, dx=conv3d_fwd) -> torch.Tensor:
     """SAME 3³ conv, x NDHWC, w (Co, Ci, 3, 3, 3), bias (Co,); output in
-    ``x.dtype``, f32 accumulation."""
-    return _Conv3dFn.apply(x, w, bias)
+    ``x.dtype``, f32 accumulation.  ``fwd`` and ``dx`` pick the kernels of
+    the forward and of the input gradient (default: this module's)."""
+    return _Conv3dFn.apply(x, w, bias, fwd, dx)

@@ -1,0 +1,172 @@
+"""SAME 3³ conv3d fed from a staged slab: the tw-packed and im2col kernels,
+their plain versions and the autograd glue.
+
+Port of ``pcrlv2_tpu/ops/pallas_conv.py::conv3d_packed`` (``_packed_kernel``)
+and ``::conv3d_im2col`` (``_im2col_kernel``).  Both compute what
+``conv3d_kernel.conv3d_fwd`` computes; the CUDA source is
+``csrc/conv3d_packed.cu``, whose header says what bounds the kernels and how
+the tiling answers it.  Weights come as ``conv3d_kernel.repack_weight``'s
+(27, Ci, Co) buffer, which is also the TPU kernels' ``w9`` (9, 3·Ci, Co) and
+``wmat`` (27·Ci, Co).
+
+* ``conv3d_packed``: forward and dx (on flipped, io-swapped weights) by the
+  packed kernel, dw by ``conv3d_kernel.conv3d_dw`` (the JAX package leaves
+  dw to XLA's transpose), db a sum in f32 (``pallas_conv.py:442-473``);
+* ``conv3d_im2col``: forward by the im2col kernel, dx by
+  ``conv3d_kernel.conv3d_fwd`` on flipped weights and dw by ``conv3d_dw``
+  (XLA transposes in JAX, ``pallas_conv.py:476-508``).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel or raises.  It never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from pcrlv2_tpu_torch.ops import _build
+from pcrlv2_tpu_torch.ops import conv3d_kernel as ck
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGS = {
+    "conv3d_packed": (_P, _P, _P, _P) + (_I,) * 10 + (_L, _P),
+    "conv3d_im2col": (_P, _P, _P, _P) + (_I,) * 11 + (_L, _P),
+}
+_BM = 64      # the kernels' output rows (voxels) per block
+_BN = 64      # output channels per block
+_CK = 16      # input channels per staged chunk
+#: shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232448
+_WEIGHT_SMEM = 4 * 9 * _CK * _BN
+
+
+def _fn(kind: str, dtype: torch.dtype):
+    return _build.entry("conv3d_packed", kind, dtype, _SIGS[kind])
+
+
+def tiles(b: int, d: int, h: int, w: int) -> dict:
+    """How the kernels cut the output into blocks of 64 voxels: planes of at
+    least 64 voxels in ``tpp`` segments of ``L = 64`` consecutive positions
+    (``P = 1``); smaller planes ``P = 64 // (h·w)`` whole to a block
+    (``L = h·w``).  ``rows`` is the most input rows of one plane an
+    im2col block stages, halo included."""
+    hw = h * w
+    if hw >= _BM:
+        p, seg, tpp = 1, _BM, math.ceil(hw / _BM)
+        n = b * d * tpp
+        rows = (w + _BM - 2) // w + 3
+    else:
+        p, seg, tpp = _BM // hw, hw, 1
+        n = math.ceil(b * d / p)
+        rows = h + 2
+    return {"P": p, "L": seg, "tpp": tpp, "tiles": n, "rows": rows}
+
+
+def smem_bytes(kind: str, geo: dict, w: int) -> int:
+    """Dynamic shared memory of one block: the f32 slab (leading dimension
+    padded by one float, rounded up to 16 bytes) and the weights."""
+    if kind == "conv3d_packed":
+        slab = geo["P"] * (geo["L"] + 2 * w) * (3 * _CK + 1)
+    else:
+        slab = 3 * geo["P"] * geo["rows"] * (w + 2) * (_CK + 1)
+    return 4 * (-(-slab // 4) * 4) + _WEIGHT_SMEM
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path and the card-side reference)
+# ---------------------------------------------------------------------------
+
+
+def conv3d_packed_plain(x: torch.Tensor, wmat: torch.Tensor,
+                        bias: torch.Tensor | None) -> torch.Tensor:
+    """``bias + Σ_{td,th} window_th(packed_td) @ w9[3·td + th]`` in f32: for
+    each depth tap the three tw shifts side by side, ``packed_td`` ((H+2)·W
+    rows of 3·Ci), and the th windows as row offsets th·W of it."""
+    b, d, h, w, ci = x.shape
+    co = wmat.shape[-1]
+    w9 = wmat.reshape(9, 3 * ci, co).float()
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1)).float()
+    acc = torch.zeros(b, d, h * w, co, dtype=torch.float32, device=x.device)
+    if bias is not None:
+        acc += bias.float()
+    for td in range(3):
+        plane = xp[:, td:td + d]
+        packed = torch.cat([plane[:, :, :, tw:tw + w] for tw in range(3)], -1)
+        packed = packed.reshape(b, d, (h + 2) * w, 3 * ci)
+        for th in range(3):
+            acc += packed[:, :, th * w:th * w + h * w] @ w9[3 * td + th]
+    return acc.reshape(b, d, h, w, co).to(x.dtype)
+
+
+def conv3d_im2col_plain(x: torch.Tensor, wmat: torch.Tensor,
+                        bias: torch.Tensor | None) -> torch.Tensor:
+    """``bias + cols @ wmat.reshape(27·Ci, Co)`` in f32, ``cols`` the 27 tap
+    windows side by side (N, 27·Ci), tap-major as the reshape orders it."""
+    b, d, h, w, ci = x.shape
+    co = wmat.shape[-1]
+    cols = torch.cat([win for _, win in ck.windows(x)], -1)
+    out = cols @ wmat.reshape(27 * ci, co).float()
+    if bias is not None:
+        out += bias.float()
+    return out.reshape(b, d, h, w, co).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _launch(kind: str, plain, x: torch.Tensor, wmat: torch.Tensor,
+            bias: torch.Tensor | None) -> torch.Tensor:
+    b, d, h, w, ci = x.shape
+    if wmat.shape[:2] != (27, ci):
+        raise ValueError(f"weights {tuple(wmat.shape)} do not fit Ci={ci}")
+    co = wmat.shape[2]
+    tensors = (x, wmat) if bias is None else (x, wmat, bias)
+    if _build.check_inputs(*tensors) == "cpu":
+        return plain(x, wmat, bias)
+    if x.numel() == 0:
+        raise ValueError(f"{kind} takes a non-empty input, got {tuple(x.shape)}")
+    geo = tiles(b, d, h, w)
+    smem = smem_bytes(kind, geo, w)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{kind}: W={w} needs {smem} bytes of shared memory "
+                         f"per block, more than the {SMEM_LIMIT} a block has")
+    out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
+    extra = (geo["rows"],) if kind == "conv3d_im2col" else ()
+    err = _fn(kind, x.dtype)(
+        x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), b, d, h, w, ci, co, geo["P"], geo["L"], geo["tpp"],
+        geo["tiles"], *extra, smem, _build.stream_ptr(x))
+    _build.check(err, f"{kind} launch")
+    _build.launches[kind] += 1
+    return out
+
+
+def conv3d_packed_fwd(x: torch.Tensor, wmat: torch.Tensor,
+                      bias: torch.Tensor | None) -> torch.Tensor:
+    """SAME 3³ conv by the packed kernel: x (B, D, H, W, Ci), wmat
+    (27, Ci, Co), bias (Co,) or None, all of one dtype → (B, D, H, W, Co)."""
+    return _launch("conv3d_packed", conv3d_packed_plain, x, wmat, bias)
+
+
+def conv3d_im2col_fwd(x: torch.Tensor, wmat: torch.Tensor,
+                      bias: torch.Tensor | None) -> torch.Tensor:
+    """SAME 3³ conv by the im2col kernel; arguments as ``conv3d_packed_fwd``."""
+    return _launch("conv3d_im2col", conv3d_im2col_plain, x, wmat, bias)
+
+
+def conv3d_packed(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """SAME 3³ conv, x NDHWC, w (Co, Ci, 3, 3, 3), bias (Co,): forward and
+    dx by the packed kernel."""
+    return ck.conv3d(x, w, bias, fwd=conv3d_packed_fwd, dx=conv3d_packed_fwd)
+
+
+def conv3d_im2col(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """SAME 3³ conv, x NDHWC, w (Co, Ci, 3, 3, 3), bias (Co,): forward by
+    the im2col kernel, dx by ``conv3d_kernel.conv3d_fwd``."""
+    return ck.conv3d(x, w, bias, fwd=conv3d_im2col_fwd, dx=ck.conv3d_fwd)

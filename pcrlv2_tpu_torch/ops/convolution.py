@@ -4,12 +4,15 @@
 Activations are NDHWC; weights keep the reference torch layouts
 (Conv3d (Co, Ci, k, k, k), ConvTranspose3d (Ci, Co, k, k, k)).
 
-Dispatch, fixed by shape:
+Dispatch, by shape and ``PCRL_CONV3D`` (``conv_impl``):
 
 * 3³ SAME stride 1, Co = 1  → the head kernel (``ops/head_conv.py``), bias
-  added after it;
-* 3³ SAME stride 1, Co > 1  → the conv kernel (``ops/conv3d_kernel.py``),
-  the Ci = 1 stem included;
+  added after it, whatever ``PCRL_CONV3D`` says (so the port's ``packed``
+  is the JAX package's ``PCRL_CONV3D=packed PCRL_HEADCONV=tapP``);
+* 3³ SAME stride 1, Co > 1  → the conv kernels of the selected
+  implementation, the Ci = 1 stem included: ``pallas`` (the default)
+  ``ops/conv3d_kernel.py``, ``packed`` and ``im2col``
+  ``ops/conv3d_packed.py``;
 * 1³                        → one (N, Ci) @ (Ci, Co) product;
 * k2s2 transpose conv       → one (N, Ci) @ (Ci, Co·8) product and a reshape
   (kernel == stride: the output windows never overlap).
@@ -17,10 +20,31 @@ Dispatch, fixed by shape:
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from pcrlv2_tpu_torch.ops.conv3d_kernel import conv3d as conv3d_3x3
+from pcrlv2_tpu_torch.ops.conv3d_kernel import conv3d as conv3d_pallas
+from pcrlv2_tpu_torch.ops.conv3d_packed import conv3d_im2col, conv3d_packed
 from pcrlv2_tpu_torch.ops.head_conv import head_conv3d
+
+#: ``PCRL_CONV3D`` value → the 3³ conv (Co > 1) it selects
+CONV3D_IMPLS = {"pallas": conv3d_pallas, "packed": conv3d_packed,
+                "im2col": conv3d_im2col}
+
+
+def conv_impl() -> str:
+    """The 3³ conv implementation ``PCRL_CONV3D`` selects, read at each call
+    (as ``pcrlv2_tpu/ops/convolution.py:40-58``): unset or ``pallas`` (the
+    default), ``packed`` or ``im2col``.  Any other value raises: the port
+    has no library conv to stand for the JAX package's ``xla``, and
+    ``auto``'s win set is a TPU measurement."""
+    impl = (os.environ.get("PCRL_CONV3D") or "pallas").lower()
+    if impl not in CONV3D_IMPLS:
+        raise ValueError(
+            f"PCRL_CONV3D={impl!r} is not an implementation of the port: use "
+            f"pallas (the default), packed or im2col")
+    return impl
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor,
@@ -34,7 +58,7 @@ def conv3d(x: torch.Tensor, w: torch.Tensor,
             return out if b is None else out + b.to(out.dtype)
         bias = b if b is not None else torch.zeros(co, dtype=x.dtype,
                                                    device=x.device)
-        return conv3d_3x3(x, w, bias)
+        return CONV3D_IMPLS[conv_impl()](x, w, bias)
     if k == (1, 1, 1):
         out = x.reshape(-1, ci) @ w.reshape(co, ci).t().to(x.dtype)
         if b is not None:

@@ -1,11 +1,17 @@
-"""Reference-schema ``.pt`` checkpoints and the bridge from JAX variables
-(port of ``pcrlv2_tpu/train/checkpoint.py``).
+"""Reference-schema ``.pt`` checkpoints, the train state for resume, and the
+bridge from JAX variables (port of ``pcrlv2_tpu/train/checkpoint.py``).
 
 The port's ``PCRLv23d.state_dict()`` already is the reference schema, so a
 ``.pt`` is ``{'opt', 'state_dict', 'optimizer', 'epoch'}`` written by
 ``torch.save`` (reference ``train_3d.py:74-75``).  ``from_jax_variables``
 carries the JAX package's ``params``/``batch_stats`` trees (numpy leaves)
 into that schema; the mapping table is a copy of ``pcrlv23d_mapping``.
+
+The train state (``save_train_state``, the role of the JAX package's Orbax
+state) is one ``torch.save`` file, ``<state dir>/state.pt``: parameters and
+BN statistics, momentum buffers, step counter, epoch, and the state of the
+trainer's random generators, so a resumed run draws the augmentations and
+levels an unbroken run would.
 
 Layouts (torch ← flax, channels-last):
   Conv3d  (O, I, kd, kh, kw) ← (kd, kh, kw, I, O)
@@ -15,6 +21,7 @@ Layouts (torch ← flax, channels-last):
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -140,3 +147,55 @@ def import_pcrlv23d(path: str, model: torch.nn.Module) -> Dict[str, Any]:
     ckpt = load_reference_checkpoint(path)
     model.load_state_dict(ckpt["state_dict"], strict=True)
     return ckpt
+
+
+# ---------------------------------------------------------------------------
+# train state for resume
+# ---------------------------------------------------------------------------
+
+STATE_FILE = "state.pt"
+
+
+def save_train_state(state_dir: str, epoch: int, state,
+                     generators: Mapping[str, torch.Generator]) -> str:
+    """Write ``state`` (a ``train.step.TrainState``) after ``epoch`` and the
+    generators' states to ``<state_dir>/state.pt`` (tmp + rename, so a crash
+    never leaves a torn file); returns its path."""
+    os.makedirs(state_dir, exist_ok=True)
+    path = os.path.join(state_dir, STATE_FILE)
+    payload = {
+        "epoch": int(epoch), "step": int(state.step),
+        "model": {k: v.detach().cpu().clone()
+                  for k, v in state.model.state_dict().items()},
+        "momentum": [b.detach().cpu().clone() for b in state.optimizer.buffers],
+        "generators": {k: g.get_state() for k, g in generators.items()},
+    }
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_train_state(state_dir: str, state,
+                     generators: Mapping[str, torch.Generator]) -> int:
+    """Restore what ``save_train_state`` wrote into ``state`` and
+    ``generators`` (in place, strict); returns the saved epoch.  Raises
+    ``FileNotFoundError`` when ``state_dir`` holds no state."""
+    path = os.path.join(state_dir, STATE_FILE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no train state to resume from: {path} does not exist")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(payload["model"], strict=True)
+    if len(payload["momentum"]) != len(state.optimizer.buffers):
+        raise ValueError(f"{path}: {len(payload['momentum'])} momentum buffers "
+                         f"for {len(state.optimizer.buffers)} parameters")
+    with torch.no_grad():
+        for buf, saved in zip(state.optimizer.buffers, payload["momentum"]):
+            buf.copy_(saved)
+    state.step = int(payload["step"])
+    if set(payload["generators"]) != set(generators):
+        raise ValueError(f"{path}: generators {sorted(payload['generators'])}, "
+                         f"expected {sorted(generators)}")
+    for k, g in generators.items():
+        g.set_state(payload["generators"][k])
+    return int(payload["epoch"])

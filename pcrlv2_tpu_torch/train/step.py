@@ -17,6 +17,11 @@ update and restores every piece of state the step touched: BN statistics,
 parameters, momentum and the step counter.  The loss is known before the
 backward pass, so the step checks it on the host and restores the BN
 statistics it had saved; parameters and momentum are then never written.
+
+Evaluation (``eval_step``, port of the JAX trainer's eval function) is the
+same loss, forward only, with BatchNorm on batch statistics as in training;
+the running statistics are restored afterwards, so it leaves the state as
+it found it.
 """
 
 from __future__ import annotations
@@ -106,4 +111,21 @@ def train_step(state: TrainState, views: Dict[str, torch.Tensor],
         state.step += 1
     metrics["level"] = int(levels[0])
     metrics["skipped"] = float(bad)
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(model: torch.nn.Module, views: Dict[str, torch.Tensor],
+              levels: Sequence[int]) -> Dict:
+    """The 4-term loss on ``views`` at epoch 0's β, forward only, BatchNorm
+    on batch statistics (the JAX eval applies the model with ``train=True``
+    and drops the updated statistics); every buffer of ``model`` is the
+    same afterwards.  Returns the detached metrics."""
+    model.train()
+    saved = [buf.clone() for buf in model.buffers()]
+    try:
+        _, metrics = loss_fn(model, views, levels, 0)
+    finally:
+        for buf, old in zip(model.buffers(), saved):
+            buf.copy_(old)
     return metrics
