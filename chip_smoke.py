@@ -38,7 +38,17 @@ Phases, any failure exits non-zero without the final line:
    epoch 2, every eval loss be finite, the launch counts be those of the
    steps and eval batches run, and the ``.pt`` load strictly; step time
    (median of steps 4-10 of epoch 0), ``DT``, and the busy share of the
-   same path under the profiler.
+   same path under the profiler;
+9. the kernel prototype tools (``pcrlv2_tpu_torch.tools``): each tool's
+   ``main()`` (``proto_conv``, ``proto_co1_kernel`` ``main`` and ``main2``,
+   ``probe_mosaic``) at the JAX tools' shapes (B = 32, bf16) with every
+   launch counter set to 0 just before and read just after; then #7 (both
+   modes), #8 and #9 held against their plain versions at every tool shape
+   at B = 32 in bf16 and at B = 2 in f32 (TF32 off), the 14 probes of #10
+   with tolerance 0, and each kernel, its plain version and the PyTorch call
+   for the same function timed at B = 32.  No training step launches these
+   kernels, so their ``launches`` in the kernels line are the counts of
+   the tool runs.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -113,6 +123,17 @@ KERNELS = {
     "conv3d_packed": ("pcrlv2_tpu_torch/csrc/conv3d_packed.cu",
                       "pcrlv2_tpu/ops/pallas_conv.py:380"),
 }
+
+# the kernel prototype tools' kernels (phase 9): (source, TPU kernel)
+TOOL_KERNELS = {
+    "proto_conv27": ("pcrlv2_tpu_torch/csrc/proto_conv.cu", "tools/proto_conv.py:25"),
+    "proto_conv9": ("pcrlv2_tpu_torch/csrc/proto_conv.cu", "tools/proto_conv.py:25"),
+    "proto_co1": ("pcrlv2_tpu_torch/csrc/proto_co1.cu", "tools/proto_co1_kernel.py:55"),
+    "proto_co1_band": ("pcrlv2_tpu_torch/csrc/proto_co1.cu",
+                       "tools/proto_co1_kernel.py:149"),
+    "probe_mosaic": ("pcrlv2_tpu_torch/csrc/probe_mosaic.cu", "tools/probe_mosaic.py:28"),
+}
+TOOL_F32_BATCH = 2  # the f32 pass of phase 9 (the tools' own runs are bf16 at B = 32)
 
 # Launches per training step: the 14 3³ convs with Co > 1 run forward 3
 # times (x1, x2, locals) = 42; their filter gradients are 42 and their dx 39
@@ -542,6 +563,98 @@ def print_profile(name: str, p: dict):
           flush=True)
 
 
+def run_tools() -> dict:
+    """Phase 9, the tool runs: each tool's ``main()`` on the card at the JAX
+    tools' shapes, the launch counters set to 0 just before and read just
+    after.  Any probe FAIL or kernel of the tools left unlaunched fails."""
+    import torch
+
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.tools import probe_mosaic, proto_co1_kernel, proto_conv
+
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    rows = {"proto_conv": proto_conv.main(), "proto_co1_kernel.main": proto_co1_kernel.main(),
+            "proto_co1_kernel.main2": proto_co1_kernel.main2()}
+    failures = probe_mosaic.main()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: _build.launches[k] for k in TOOL_KERNELS}
+    if failures:
+        raise AssertionError(f"probe_mosaic: {failures} probes FAIL")
+    if not all(counts.values()):
+        raise AssertionError(f"tool runs left kernels unlaunched: {counts}")
+    return {"counts": counts, "rows": rows, "wall_s": wall}
+
+
+def tool_cases(dtype, batch: int):
+    """The tools' cases: #7's and #8/#9's at every tool shape, and the 14
+    probes of #10 (once, in the bf16 pass: they fix their own dtypes)."""
+    import torch
+
+    from pcrlv2_tpu_torch.tools import probe_mosaic, proto_co1_kernel, proto_conv
+
+    dev = torch.device("cuda")
+    yield from proto_conv.cases(dev, batch, dtype)
+    yield from proto_co1_kernel.cases(dev, batch, dtype)
+    if dtype == torch.bfloat16:
+        yield from probe_mosaic.cases(dev)
+
+
+def check_and_time_tools(results):
+    """Phase 9, the checks: every tool kernel against its plain version at
+    every tool shape (the probes with tolerance 0), bf16 at B = 32 (timed:
+    kernel, plain, PyTorch call) and f32 at ``TOOL_F32_BATCH``.  A kernel's
+    summary sums one launch at each of its B = 32 shapes."""
+    import torch
+
+    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
+               for k in TOOL_KERNELS}
+    failures = []
+    for dtype, batch in ((torch.bfloat16, 32), (torch.float32, TOOL_F32_BATCH)):
+        dname = str(dtype).split(".")[1]
+        for case in tool_cases(dtype, batch):
+            got, ref = case.run(), case.plain()
+            torch.cuda.synchronize()
+            rel, err = rel_err(got, ref)
+            tol = 0.0 if case.kernel == "probe_mosaic" else TOL[(dname, "out")]
+            ok = got.dtype == ref.dtype and got.shape == ref.shape and (
+                torch.equal(got, ref) if tol == 0.0 else rel <= tol)
+            del got, ref
+            row = {"kernel": case.kernel, "case": case.label, "dtype": dname,
+                   "batch": batch, "rel_err": rel, "tol": tol, "max_abs_err": err,
+                   "ok": ok}
+            s = summary[case.kernel]
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            if batch == 32:
+                io_dtype = "bfloat16" if case.kernel != "probe_mosaic" else "float32"
+                row.update(ms=time_ms(case.run), plain_ms=time_ms(case.plain, reps=2),
+                           library_ms=time_ms(case.library),
+                           ops_ms=1e3 * case.flops / PEAK_FLOPS[io_dtype],
+                           bytes_ms=1e3 * case.nbytes / HBM_BYTES_S)
+                row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms"):
+                    s[key] += row[key]
+                s["shapes"] += 1
+            results.append(row)
+            if not ok:
+                failures.append(f"{dname} B={batch} {case.kernel} {case.label}: "
+                                f"rel err {rel:.3e} > {tol}")
+        n = sum(r["dtype"] == dname and r["batch"] == batch for r in results)
+        print(f"  {dname} B={batch}: {n} tool launches checked", flush=True)
+    return summary, failures
+
+
+def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
+    """One kernel of the kernels line, from its summary ``s``."""
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
+            "library_ms": s["library_ms"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -621,21 +734,32 @@ def main() -> int:
               f"{[round(e['loss'], 5) for e in d['evals']]}", flush=True)
         print_profile("disk", p)
 
-        kernels = []
-        for name, (src, replaces) in KERNELS.items():
-            s = summary[name]
-            kernels.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": replaces,
-                            "launches": runs[LAUNCHED_IN[name]]["counts"][name],
-                            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                            "bound_by": ("operations" if s["ops_ms"] >= s["bytes_ms"]
-                                         else "bytes"),
-                            "library_ms": s["library_ms"]})
+        print("[9] the kernel prototype tools at the JAX tools' shapes", flush=True)
+        t9 = time.perf_counter()
+        tools = run_tools()
+        print(f"[9] tool runs: launches {tools['counts']} in {tools['wall_s']:.1f} s",
+              flush=True)
+        tool_rows = []
+        tool_summary, failures = check_and_time_tools(tool_rows)
+        if failures:
+            raise AssertionError("tool kernel disagrees with its plain version:\n  "
+                                 + "\n  ".join(failures))
+        for name, s in tool_summary.items():
+            print(f"[9] {name}: {s['ms']:.3f} ms over {s['shapes']} shapes (plain "
+                  f"{s['plain_ms']:.3f}, PyTorch call {s['library_ms']:.3f}, bound "
+                  f"{s['bound_ms']:.4f}), max abs err {s['max_abs_err']:.3e}", flush=True)
+        tools["phase_s"] = time.perf_counter() - t9
+        print(f"[9] phase 9 took {tools['phase_s']:.1f} s", flush=True)
+
+        kernels = [kernel_entry(name, src, replaces, runs[LAUNCHED_IN[name]]["counts"][name],
+                                summary[name]) for name, (src, replaces) in KERNELS.items()]
+        kernels += [kernel_entry(name, src, replaces, tools["counts"][name], tool_summary[name])
+                    for name, (src, replaces) in TOOL_KERNELS.items()]
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
             json.dump({"card": card, "build_s": {k: v[0] for k, v in report.items()},
                        "rows": rows, "runs": runs, "profiles": profiles,
-                       "summary": summary}, fh, indent=1)
+                       "summary": summary, "tools": tools, "tool_rows": tool_rows,
+                       "tool_summary": tool_summary}, fh, indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1
         traceback.print_exc()
         return 1

@@ -1,5 +1,6 @@
-// Device helpers shared by the port's kernels: float/bf16 conversion and the
-// fixed-order sum of per-block partials that ends each two-pass reduction.
+// Helpers shared by the port's kernels: float/bf16 conversion, the
+// fixed-order sum of per-block partials that ends each two-pass reduction,
+// and the opt-in to more than 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +33,18 @@ inline int sum_partials(const float* partial, float* out, int S, long long n,
                         cudaStream_t stream) {
   sum_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, out, S, n);
   return (int)cudaGetLastError();
+}
+
+// Allow `kernel` the dynamic shared memory `smem` (above the default 48 KB
+// only after this call); returns a CUDA error code.
+template <typename K>
+int prepare(K kernel, size_t smem) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace

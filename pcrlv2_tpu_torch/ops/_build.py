@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("conv3d", "conv3d_packed", "head_conv")
+SOURCES = ("conv3d", "conv3d_packed", "head_conv", "proto_conv", "proto_co1", "probe_mosaic")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
