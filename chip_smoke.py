@@ -12,10 +12,11 @@ Phases, any failure exits non-zero without the final line:
    3D pretraining path gives it, in f32 (TF32 off) and bf16: the conv
    forward/dx (#1), filter gradient (#2), heads (#3, #4), and the packed
    (#6, forward and dx) and im2col (#5, forward) convs;
-4. time each kernel, its plain version and, as a yardstick only, the one
-   PyTorch call that computes the same function (cuDNN);
+4. time each kernel and, as a yardstick only, the one PyTorch call that
+   computes the same function (cuDNN), in f32 and bf16, and the plain
+   version in f32; per kernel, the sums over its shapes in each dtype;
 5. check a small forward of the model on the card against the same weights
-   on the CPU;
+   on the CPU, in f32 and under the bf16 policy of ``--amp``;
 6. run the port's CLI at full width (``--synthetic --d 3 --b 4 --epochs 0
    --steps_per_epoch 10``) under ``PCRL_CONV3D=pallas`` (the default) in
    f32 and with ``--amp``, and under ``packed`` and ``im2col`` in f32, with
@@ -291,17 +292,21 @@ def rel_err(got, ref):
 
 def check_and_time(results):
     """Phases 3 and 4: every kernel against its plain version at every shape,
-    in f32 and bf16; kernel, plain and library times in f32, kernel in bf16.
-    A kernel's summary sums one launch at each of its main-path shapes."""
+    in f32 and bf16; kernel, bound and library times in both dtypes, the
+    plain version's in f32.  A kernel's summary sums one launch at each of
+    its main-path shapes, per dtype (the bf16 sums under ``bf16_*`` keys)."""
     import torch
 
-    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
+    keys = ("ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")
+    summary = {k: {"max_abs_err": 0.0, "plain_ms": 0.0, "shapes": 0,
+                   "bf16_max_abs_err": 0.0, "bf16_shapes": 0,
+                   **{key: 0.0 for key in keys}, **{"bf16_" + key: 0.0 for key in keys}}
                for k in KERNELS}
     failures = []
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
+        pre = "" if dtype == torch.float32 else "bf16_"
         for case_fn in (conv_cases, head_cases):
             for kernel, label, kfn, pfn, lfn, flops, nbytes, kinds in case_fn(dtype):
                 got, ref = kfn(), pfn()
@@ -317,46 +322,77 @@ def check_and_time(results):
                 row = {"kernel": kernel, "case": label, "dtype": dname,
                        "rel_err": [e[0] for e in errs], "tol": tols,
                        "max_abs_err": err, "ok": ok, "ms": time_ms(kfn),
+                       "library_ms": time_ms(lfn),
                        "ops_ms": 1e3 * flops / PEAK_FLOPS[dname],
                        "bytes_ms": 1e3 * nbytes / HBM_BYTES_S}
                 row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+                s = summary[kernel]
                 if dname == "float32":
                     row["plain_ms"] = time_ms(pfn, reps=2)
-                    row["library_ms"] = time_ms(lfn)
-                    s = summary[kernel]
-                    s["max_abs_err"] = max(s["max_abs_err"], err)
-                    for key in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                "ops_ms", "bytes_ms"):
-                        s[key] += row[key]
-                    s["shapes"] += 1
+                    s["plain_ms"] += row["plain_ms"]
+                s[pre + "max_abs_err"] = max(s[pre + "max_abs_err"], err)
+                for key in keys:
+                    s[pre + key] += row[key]
+                s[pre + "shapes"] += 1
                 results.append(row)
                 worst[dname] = max(worst.get(dname, 0.0), rel)
                 if not ok:
                     failures.append(f"{dname} {label}: rel err {row['rel_err']} > {tols}")
         print(f"  {dname}: {sum(r['dtype'] == dname for r in results)} launches checked, "
               f"largest error {worst[dname]:.2f} of its tolerance", flush=True)
+    for name, s in summary.items():
+        print(f"  {name}: f32 {s['ms']:.3f} ms (bound {s['bound_ms']:.3f}, cuDNN "
+              f"{s['library_ms']:.3f}, plain {s['plain_ms']:.3f}); bf16 {s['bf16_ms']:.3f} ms "
+              f"(bound {s['bf16_bound_ms']:.3f}, cuDNN {s['bf16_library_ms']:.3f}) over "
+              f"{s['shapes']} shapes", flush=True)
     return summary, failures
 
 
 def model_reference_check():
-    """A small train-mode forward on the card (kernels) against the same
-    weights on the CPU (plain versions), f32."""
+    """Phase 5: a small train-mode forward (output and the 3 masks) on the
+    card (kernels) against the same weights on the CPU (plain versions).
+
+    f32 (``PARITY_POLICY``): within 1e-4.  bf16 (``DEFAULT_POLICY``, what
+    ``--amp`` runs): both sides round every layer's activations to bf16 but
+    sum in other orders, so roundings flip here and there and the flips
+    compound over 20 layers; neither bf16 run is the other's reference.  The
+    card's bf16 forward must be no farther from the CPU's f32 forward than
+    1.5× the CPU's own bf16 forward is, plus 2^-8 (one bf16 rounding) of the
+    largest entry: the rule ``tests/test_torch_model.py::
+    test_bf16_policy_forward_matches_jax`` holds the port's bf16 path to on
+    the CPU against the JAX package.  Returns the f32 error and, per output,
+    the bf16 distances relative to the largest entry."""
     import torch
 
-    from pcrlv2_tpu_torch.core.precision import PARITY_POLICY
+    from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
     from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 
-    gpu = PCRLv23d(policy=PARITY_POLICY, seed=5, device="cuda")
-    cpu = PCRLv23d(policy=PARITY_POLICY, seed=5, device="cpu")
     x = torch.rand(2, 16, 16, 8, 1, generator=torch.Generator().manual_seed(6))
-    with torch.no_grad():
-        out_g, feats_g, masks_g = gpu(x.to("cuda"))
-        out_c, feats_c, masks_c = cpu(x)
-    errs = [(a.cpu() - b).abs().max().item()
-            for a, b in [(out_g, out_c)] + list(zip(masks_g, masks_c))]
+
+    def forward(policy, device):
+        model = PCRLv23d(policy=policy, seed=5, device=device)
+        with torch.no_grad():
+            out, _, masks = model(x.to(device))
+        return [v.float().cpu() for v in (out, *masks)]
+
+    f32_card, f32_cpu = forward(PARITY_POLICY, "cuda"), forward(PARITY_POLICY, "cpu")
+    errs = [(a - b).abs().max().item() for a, b in zip(f32_card, f32_cpu)]
     if max(errs) > 1e-4 or not all(math.isfinite(e) for e in errs):
         raise AssertionError(f"model on the card vs CPU: max err {max(errs):.3e} > 1e-4")
-    return max(errs)
+    bf16_card, bf16_cpu = forward(DEFAULT_POLICY, "cuda"), forward(DEFAULT_POLICY, "cpu")
+    bf16 = {}
+    for name, card, cpu, ref in zip(("out", "mask0", "mask1", "mask2"),
+                                    bf16_card, bf16_cpu, f32_cpu):
+        scale = ref.abs().max().item()
+        err = (card - ref).abs().max().item() / scale
+        limit = 1.5 * (cpu - ref).abs().max().item() / scale + 2.0 ** -8
+        bf16[name] = {"card_vs_cpu_f32": err, "limit": limit,
+                      "cpu_bf16_vs_cpu_f32": (cpu - ref).abs().max().item() / scale,
+                      "card_vs_cpu_bf16": (card - cpu).abs().max().item() / scale}
+        if not err <= limit:
+            raise AssertionError(f"bf16 model on the card, {name}: {err:.3e} of the largest "
+                                 f"entry from the CPU's f32 forward, limit {limit:.3e}")
+    return max(errs), bf16
 
 
 def cli_argv(amp: bool, out_dir: str, steps: int):
@@ -647,12 +683,17 @@ def check_and_time_tools(results):
 
 
 def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
-    """One kernel of the kernels line, from its summary ``s``."""
+    """One kernel of the kernels line, from its summary ``s``.  ``bf16_ms``,
+    ``bf16_bound_ms`` and ``bf16_library_ms`` are its bf16 sums; the tools'
+    kernels are timed in bf16 only (B = 32), so theirs repeat ``ms``,
+    ``bound_ms`` and ``library_ms``."""
+    pre = "bf16_" if "bf16_ms" in s else ""
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
-            "library_ms": s["library_ms"]}
+            "library_ms": s["library_ms"], "bf16_ms": s[pre + "ms"],
+            "bf16_bound_ms": s[pre + "bound_ms"], "bf16_library_ms": s[pre + "library_ms"]}
 
 
 def main() -> int:
@@ -699,8 +740,11 @@ def main() -> int:
             raise AssertionError("kernel disagrees with its plain version:\n  "
                                  + "\n  ".join(failures))
 
-        err = model_reference_check()
-        print(f"[5] model forward on the card vs CPU: max abs err {err:.2e}")
+        err, bf16_model = model_reference_check()
+        print(f"[5] model forward on the card vs CPU: f32 max abs err {err:.2e}; bf16 "
+              f"(of the largest entry, from the CPU's f32 forward, vs limit): " + ", ".join(
+                  f"{k} {v['card_vs_cpu_f32']:.2e} vs {v['limit']:.2e}"
+                  for k, v in bf16_model.items()), flush=True)
 
         runs = {}
         for name, selector, amp in RUNS:
@@ -757,7 +801,9 @@ def main() -> int:
                     for name, (src, replaces) in TOOL_KERNELS.items()]
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
             json.dump({"card": card, "build_s": {k: v[0] for k, v in report.items()},
-                       "rows": rows, "runs": runs, "profiles": profiles,
+                       "rows": rows, "model_check": {"f32_max_abs_err": err,
+                                                     "bf16": bf16_model},
+                       "runs": runs, "profiles": profiles,
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
                        "tool_summary": tool_summary}, fh, indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1

@@ -6,12 +6,22 @@ layout (Co, Ci, 3, 3, 3) and are repacked to (27, Ci, Co) on every call, with
 tap ``t = 9·td + 3·th + tw``.  The CUDA source is ``csrc/conv3d.cu``; its
 header says what bounds each kernel on the H100 and how the design answers it.
 
-* forward: ``out = bias + Σ_t window_t(x) @ W[t]``, f32 accumulation;
+* forward: ``out = bias + Σ_t window_t(x) @ W[t]``, f32 accumulation; an
+  implicit GEMM of ``_BM``-voxel × ``fwd_tile``-channel tiles (N follows
+  Co), K split where the grid is short of the card (``fwd_split``) and the
+  splits' f32 partials added in a fixed order; bf16 on tensor cores, f32 on
+  CUDA cores;
 * dx: the same forward kernel on the spatially flipped, io-swapped weights
   (a SAME 3³ conv's adjoint);
-* dw: ``dw[t] = Σ_voxels window_t(x)ᵀ · g`` (f32), two launches: per-chunk
-  partials, then a fixed-order sum;
+* dw: ``dw[t] = Σ_voxels window_t(x)ᵀ · g`` (f32), one (tap, Ci tile, Co
+  tile) per block (``dw_tile``) and the voxels split in chunks
+  (``dw_split``), then a fixed-order sum of the chunks' partials;
+* the stem (Ci = 1) takes a scalar-gather kernel of its own, forward and dw;
 * db: ``g.sum`` in f32.
+
+The kernels copy 16-byte vectors: on the card Ci (unless 1) and Co must be
+multiples of 8 (bf16) or 4 (f32) and every pointer 16-byte aligned; the
+wrappers raise otherwise (``check_vectors``).
 
 A wrapper given CPU tensors runs the plain version (the same 27 shifted-window
 products with f32 accumulation); given CUDA tensors it launches the kernel or
@@ -33,11 +43,13 @@ OFFSETS = [(td, th, tw) for td in range(3) for th in range(3) for tw in range(3)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGS = {
-    "conv3d_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "conv3d_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P),
+    "conv3d_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "conv3d_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P),
 }
-_BK = 16      # the kernels' reduction chunk
-_TILE = 64    # the kernels' output tile edge
+_BM = 128                                    # voxel rows of a forward tile
+_BK = {torch.bfloat16: 32, torch.float32: 16}  # K chunk (channels or voxels)
+_VEC = {torch.bfloat16: 8, torch.float32: 4}   # elements per 16-byte copy
+_DW_CHUNK = 32   # the dw voxel chunks are multiples of this (both _BK values)
 
 
 def _fn(kind: str, dtype: torch.dtype):
@@ -109,6 +121,69 @@ def conv3d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def fwd_tile(ci: int, co: int) -> int:
+    """Columns of the forward tile: N follows Co (32, 64 or 128), so level
+    0's Co = 32..64 is not padded to 128; 0 for the stem (Ci = 1), whose
+    kernel takes every column."""
+    if ci == 1:
+        return 0
+    return 128 if co >= 128 else 64 if co >= 64 else 32
+
+
+def fwd_split(m: int, k: int, co: int, sms: int, bk: int) -> tuple[int, int]:
+    """(splits, K per split) of the forward's reduction (K = 27·Ci, chunks of
+    ``bk``): where the ``_BM`` × ``fwd_tile`` grid has fewer than two blocks
+    per SM, split K so it has about two, each split at least 8 chunks deep.
+    The stem (K = 27) is never split."""
+    if k == 27:
+        return 1, k
+    tiles = math.ceil(m / _BM) * math.ceil(co / fwd_tile(k // 27, co))
+    chunks = math.ceil(k / bk)
+    s = 1 if tiles >= 2 * sms else max(1, min(math.ceil(2 * sms / tiles), chunks // 8))
+    kchunk = math.ceil(chunks / s) * bk
+    return math.ceil(k / kchunk), kchunk
+
+
+def dw_tile(ci: int, co: int) -> tuple[int, int]:
+    """(channel, column) tile of one filter-grad block: (32, 64) for Ci < 64
+    (the model's Ci = 32 layer has Co = 64), else (64, 64 or 128 as Co
+    allows); (1, 32) for the stem."""
+    if ci == 1:
+        return 1, 32
+    if ci < 64:
+        return 32, 64
+    return 64, (128 if co >= 128 else 64)
+
+
+def dw_split(m: int, rows: int, co: int, sms: int) -> tuple[int, int]:
+    """(chunks, voxels per chunk) for the filter-grad reduction over ``m``
+    voxels, ``rows`` = 27·Ci: enough chunks that the partial launch has about
+    four blocks per SM, each a multiple of ``_DW_CHUNK`` voxels."""
+    bm, bn = dw_tile(rows // 27, co)
+    tiles = (27 if bm > 1 else 1) * math.ceil(rows // 27 / bm) * math.ceil(co / bn)
+    s = max(1, min(math.ceil(m / _DW_CHUNK), math.ceil(4 * sms / tiles)))
+    chunk = math.ceil(math.ceil(m / s) / _DW_CHUNK) * _DW_CHUNK
+    return math.ceil(m / chunk), chunk
+
+
+def check_vectors(tensors, ci: int, co: int) -> None:
+    """Raise unless the kernels' 16-byte copies can take these tensors: Ci
+    (unless 1, the stem) and Co multiples of ``_VEC`` and every pointer
+    16-byte aligned."""
+    vec = _VEC[tensors[0].dtype]
+    if ci != 1 and ci % vec:
+        raise ValueError(f"Ci={ci}: the kernels take Ci = 1 or a multiple of {vec}")
+    if co % vec:
+        raise ValueError(f"Co={co}: the kernels take a multiple of {vec}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the kernels need 16-byte aligned tensors")
+
+
+def _sms(x: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
 def conv3d_fwd(x: torch.Tensor, wmat: torch.Tensor,
                bias: torch.Tensor | None) -> torch.Tensor:
     """SAME 3³ conv: x (B, D, H, W, Ci), wmat (27, Ci, Co), bias (Co,) or None,
@@ -120,23 +195,19 @@ def conv3d_fwd(x: torch.Tensor, wmat: torch.Tensor,
     tensors = (x, wmat) if bias is None else (x, wmat, bias)
     if _build.check_inputs(*tensors) == "cpu":
         return conv3d_fwd_plain(x, wmat, bias)
+    check_vectors((x, wmat), ci, co)
+    m = b * d * h * w
+    s, kchunk = fwd_split(m, 27 * ci, co, _sms(x), _BK[x.dtype])
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
+    partial = torch.empty((s, m, co), dtype=torch.float32, device=x.device) if s > 1 else None
     err = _fn("conv3d_fwd", x.dtype)(
         x.data_ptr(), wmat.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        b, d, h, w, ci, co, _build.stream_ptr(x))
+        None if partial is None else partial.data_ptr(),
+        b, d, h, w, ci, co, fwd_tile(ci, co), s, kchunk, _build.stream_ptr(x))
     _build.check(err, "conv3d_fwd launch")
     _build.launches["conv3d_fwd"] += 1
     return out
-
-
-def dw_split(m: int, rows: int, co: int, sms: int) -> tuple[int, int]:
-    """(chunks, voxels per chunk) for the filter-grad reduction: enough
-    chunks that the partial launch has about four blocks per SM."""
-    tiles = math.ceil(rows / _TILE) * math.ceil(co / _TILE)
-    s = max(1, min(math.ceil(m / _BK), math.ceil(4 * sms / tiles)))
-    chunk = math.ceil(math.ceil(m / s) / _BK) * _BK
-    return math.ceil(m / chunk), chunk
 
 
 def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -147,13 +218,14 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"g {tuple(g.shape)} does not match x {tuple(x.shape)}")
     if _build.check_inputs(x, g) == "cpu":
         return conv3d_dw_plain(x, g)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    s, chunk = dw_split(b * d * h * w, 27 * ci, co, sms)
+    check_vectors((x, g), ci, co)
+    bm, bn = dw_tile(ci, co)
+    s, chunk = dw_split(b * d * h * w, 27 * ci, co, _sms(x))
     partial = torch.empty((s, 27 * ci, co), dtype=torch.float32, device=x.device)
     out = torch.empty((27, ci, co), dtype=torch.float32, device=x.device)
     err = _fn("conv3d_dw", x.dtype)(
         x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        b, d, h, w, ci, co, s, chunk, _build.stream_ptr(x))
+        b, d, h, w, ci, co, bm, bn, s, chunk, _build.stream_ptr(x))
     _build.check(err, "conv3d_dw launch")
     _build.launches["conv3d_dw"] += 1
     return out

@@ -178,5 +178,111 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                        (98304, 1728, 64), (8, 27, 32)])
 def test_dw_split_covers_every_voxel(m, rows, co):
     s, chunk = ck.dw_split(m, rows, co, sms=132)
-    assert chunk % 16 == 0 and s >= 1
+    assert chunk % ck._DW_CHUNK == 0 and s >= 1
     assert (s - 1) * chunk < m <= s * chunk
+
+
+# The model's 3³ convs with Co > 1 as (Ci, Co, level) and the two calls of a
+# training step at batch 4 (as chip_smoke.py's CONVS and CALLS): the global
+# views at (64, 64, 32), the 6 local views at 16³ concatenated.
+MODEL_CONVS = [(1, 32, 0), (32, 64, 0), (64, 64, 1), (64, 128, 1), (128, 128, 2),
+               (128, 256, 2), (256, 256, 3), (256, 512, 3), (512, 256, 2), (256, 256, 2),
+               (256, 128, 1), (128, 128, 1), (128, 64, 0), (64, 64, 0)]
+MODEL_CALLS = [(4, (64, 64, 32)), (24, (16, 16, 16))]
+
+
+def _fwd_launches():
+    """(m, Ci, Co) of every forward and dx launch of a step, then of CONV_SHAPES."""
+    out = []
+    for b, size in MODEL_CALLS:
+        for ci, co, level in MODEL_CONVS:
+            m = b * int(np.prod([s >> level for s in size]))
+            out.append((m, ci, co))
+            if ci > 1:  # the stem's input needs no gradient
+                out.append((m, co, ci))
+    out += [(b * d * h * w, ci, co) for b, d, h, w, ci, co in CONV_SHAPES]
+    return out
+
+
+@pytest.mark.parametrize("m,ci,co", _fwd_launches())
+def test_fwd_split_covers_every_k(m, ci, co):
+    """The forward's K splits tile [0, 27·Ci) once, in whole chunks, at both
+    dtypes' chunk depth; a grid with two blocks per SM is left unsplit."""
+    k = 27 * ci
+    for bk in set(ck._BK.values()):
+        s, kchunk = ck.fwd_split(m, k, co, sms=132, bk=bk)
+        assert s >= 1 and (kchunk % bk == 0 or (ci, s, kchunk) == (1, 1, 27))
+        covered = np.zeros(k, dtype=int)
+        for z in range(s):
+            covered[z * kchunk:min((z + 1) * kchunk, k)] += 1
+        assert (covered == 1).all()
+        tiles = -(-m // ck._BM) * -(-co // max(ck.fwd_tile(ci, co), 1))
+        if tiles >= 2 * 132:
+            assert s == 1
+
+
+def _split_fwd_emulation(x, wmat, bias, s, kchunk):
+    """The split forward in plain torch: each split's f32 partial over its
+    K range k = tap·Ci + ci, the partials added in split order, then the bias."""
+    ci = x.shape[-1]
+    wins = torch.cat([win for _, win in ck.windows(x)], dim=1)  # (M, 27·Ci), k order
+    wk = wmat.reshape(27 * ci, -1).float()
+    parts = [wins[:, z * kchunk:(z + 1) * kchunk] @ wk[z * kchunk:(z + 1) * kchunk]
+             for z in range(s)]
+    acc = torch.zeros_like(parts[0])
+    for p in parts:
+        acc = acc + p
+    return acc + bias.float()
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES + [(4, 2, 2, 2, 32, 64)])
+def test_split_forward_equals_plain(shape):
+    b, d, h, w, ci, co = shape
+    x = torch.from_numpy(_rand(19, b, d, h, w, ci))
+    wmat = torch.from_numpy(_rand(20, 27, ci, co, scale=0.2))
+    bias = torch.from_numpy(_rand(21, co))
+    s, kchunk = ck.fwd_split(b * d * h * w, 27 * ci, co, sms=132, bk=16)
+    s = max(s, 2)  # at least two splits, so the sum is exercised
+    kchunk = -(-27 * ci // s)
+    got = _split_fwd_emulation(x, wmat, bias, s, kchunk)
+    want = ck.conv3d_fwd_plain(x, wmat, bias).reshape(got.shape)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ci,co,bn", [(32, 64, 64), (64, 64, 64), (64, 128, 128),
+                                      (512, 256, 128), (128, 64, 64), (64, 32, 32),
+                                      (8, 24, 32), (256, 512, 128)])
+def test_fwd_tile_follows_co(ci, co, bn):
+    """N of the forward tile follows Co: level 0's Co = 32..64 is not padded
+    to 128.  The filter grad's (channel, column) tile follows (Ci, Co)."""
+    assert ck.fwd_tile(ci, co) == bn
+    assert ck.dw_tile(ci, co) == ((32, 64) if ci < 64 else (64, 128 if co >= 128 else 64))
+
+
+def test_stem_takes_its_own_path():
+    """Ci = 1 routes to the stem kernels (no tile, no K split, 27 dw rows in
+    one tile of 32 columns), and the vector checks let it through."""
+    assert ck.fwd_tile(1, 32) == 0
+    assert ck.fwd_split(524288, 27, 32, sms=132, bk=32) == (1, 27)
+    assert ck.dw_tile(1, 32) == (1, 32)
+    s, chunk = ck.dw_split(524288, 27, 32, sms=132)
+    assert s > 1 and (s - 1) * chunk < 524288 <= s * chunk
+    x = torch.zeros(1, 4, 4, 4, 1)
+    ck.check_vectors((x, torch.zeros(27, 1, 32)), 1, 32)
+
+
+def test_vector_checks_reject_what_the_copies_cannot_take():
+    """16-byte copies: a misaligned pointer, a Ci or a Co that is not a
+    multiple of the vector (8 bf16 or 4 f32) raise; checked on CPU tensors,
+    nothing is launched."""
+    w = torch.zeros(27, 8, 8)
+    ck.check_vectors((torch.zeros(1, 2, 2, 2, 8), w), 8, 8)
+    misaligned = torch.zeros(1 + 2 * 2 * 2 * 8)[1:].reshape(1, 2, 2, 2, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        ck.check_vectors((misaligned, w), 8, 8)
+    with pytest.raises(ValueError, match="Ci=12"):
+        ck.check_vectors((torch.zeros(1, 2, 2, 2, 12).bfloat16(),
+                          torch.zeros(27, 12, 8).bfloat16()), 12, 8)
+    ck.check_vectors((torch.zeros(1, 2, 2, 2, 12), torch.zeros(27, 12, 8)), 12, 8)
+    with pytest.raises(ValueError, match="Co=6"):
+        ck.check_vectors((torch.zeros(1, 2, 2, 2, 8), torch.zeros(27, 8, 6)), 8, 6)

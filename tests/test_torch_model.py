@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from pcrlv2_tpu.core.precision import DEFAULT_POLICY as JAX_DEFAULT_POLICY
 from pcrlv2_tpu.core.precision import PARITY_POLICY as JAX_PARITY_POLICY
 from pcrlv2_tpu.core.precision import Policy as JaxPolicy
 from pcrlv2_tpu.models import PCRLv23d as JaxPCRLv23d
@@ -21,7 +22,7 @@ from pcrlv2_tpu.train import checkpoint as jax_ckpt
 from pcrlv2_tpu.train.optimizer import sgd
 from pcrlv2_tpu.train.step import create_train_state, make_loss_fn, make_train_step
 
-from pcrlv2_tpu_torch.core.precision import PARITY_POLICY
+from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
 from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 from pcrlv2_tpu_torch.train import checkpoint as ckpt
 from pcrlv2_tpu_torch.train.step import TrainState, loss_fn, train_step
@@ -145,6 +146,40 @@ def test_eval_forward_matches_jax(jax_setup):
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **FWD_TOL)
     for (pro, pre), (jpro, jpre) in zip(feats, jfeats):
         np.testing.assert_allclose(pre.numpy(), np.asarray(jpre), **FEAT_TOL)
+
+
+def test_bf16_policy_forward_matches_jax(jax_setup):
+    """The port's bf16 policy (``--amp``): its train-mode forward (output and
+    the 3 masks) is no farther from the JAX f32 forward than 1.5× the JAX
+    bf16 policy's own distance, plus 2⁻⁸ (one bf16 rounding) of the largest
+    entry.  Both round activations to bf16 at other places, so neither is the
+    other's reference; the f32 forward is.  The projections are left out:
+    BatchNorm1d over 2 samples makes them chaotic (``FEAT_TOL``)."""
+    _, _, state = jax_setup
+    x = np.random.RandomState(5).rand(2, 16, 16, 8, 1).astype(np.float32)
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+
+    def jax_forward(policy):
+        (out, _, masks), _ = JaxPCRLv23d(policy=policy).apply(
+            variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+        return [np.asarray(v, dtype=np.float32) for v in (out, *masks)]
+
+    want, jax_bf16 = jax_forward(JAX_PARITY_POLICY), jax_forward(JAX_DEFAULT_POLICY)
+    model = PCRLv23d(policy=DEFAULT_POLICY, device="cpu")
+    model.load_state_dict(ckpt.from_jax_variables(
+        _variables(state.params, state.batch_stats)), strict=True)
+    model.train()
+    with torch.no_grad():
+        out, _, masks = model(torch.from_numpy(x))
+    got = [v.float().numpy() for v in (out, *masks)]
+    assert len(got) == len(want) == 4
+    for name, g, j, w in zip(("out", "mask 0", "mask 1", "mask 2"), got, jax_bf16, want):
+        assert g.shape == w.shape
+        scale = np.abs(w).max()
+        limit = 1.5 * np.abs(j - w).max() + 2.0 ** -8 * scale
+        err = np.abs(g - w).max()
+        assert err <= limit, (f"{name}: port bf16 is {err / scale:.2%} of the largest "
+                              f"entry from f32, limit {limit / scale:.2%}")
 
 
 def jax_levels(key, n_views):
