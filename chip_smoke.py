@@ -16,10 +16,16 @@ Phases, any failure exits non-zero without the final line:
    computes the same function (cuDNN), in f32 and bf16, and the plain
    version in f32; per kernel, the sums over its shapes in each dtype;
 5. check a small forward of the model on the card against the same weights
-   on the CPU, in f32 and under the bf16 policy of ``--amp``;
+   on the CPU, in f32 and under the bf16 policy of ``--amp``; then shapes
+   off the main path (``ODD_SHAPES``: Ci of 1, 2, 3 and 17, Co of 5 and 70,
+   W = 1, odd W, planes of under 64 voxels), where #5, #6 and the padded
+   routes of #1 and #2 are held against their plain versions in f32 and
+   bf16, and ``PCRLv23d(in_channels=2)``: its f32 forward on the card
+   against the CPU and one train step on the card under each
+   ``PCRL_CONV3D`` value;
 6. run the port's CLI at full width (``--synthetic --d 3 --b 4 --epochs 0
    --steps_per_epoch 10``) under ``PCRL_CONV3D=pallas`` (the default) in
-   f32 and with ``--amp``, and under ``packed`` and ``im2col`` in f32, with
+   f32 and with ``--amp``, and under ``packed`` and ``im2col`` likewise, with
    every launch counter set to 0 just before each run and read just after:
    the launches must be those of the selector (``expected_launches``),
    every loss finite, and the ``.pt`` must load strictly.
@@ -30,7 +36,8 @@ Phases, any failure exits non-zero without the final line:
    ``device_prefetch``) again under ``torch.profiler`` for each of those
    runs: device time per step by kernel group over ``PROFILED`` steps after
    the first ``WARMUP``, and the device's busy share (that time over the
-   unprofiled step time);
+   unprofiled step time); under ``--amp`` the #5/#6 kernels it records
+   must all be their tensor-core (``_mma``) ones;
 8. the disk path under ``PCRL_CONV3D=packed``: write a processed-LUNA tree
    (``write_synthetic_luna_tree``, 10 subsets × 2 UIDs × 3 pairs, so one
    epoch of folds 0-6 is 10 steps at b=4), run the CLI with ``--data
@@ -63,6 +70,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -103,7 +111,8 @@ PROFILED = 4   # steps under the profiler (phase 7)
 CALLS = {"global": (BATCH, (64, 64, 32)), "local": (6 * BATCH, (16, 16, 16))}
 
 #: device-kernel name fragment → group reported by phase 7
-GROUPS = [("conv3d_fwd_kernel", "conv3d_fwd (#1, fwd and dx)"),
+GROUPS = [("splitsum", "K-split sums (#1, #5, #6)"),
+          ("conv3d_fwd_kernel", "conv3d_fwd (#1, fwd and dx)"),
           ("conv3d_packed_kernel", "conv3d_packed (#6, fwd and dx)"),
           ("conv3d_im2col_kernel", "conv3d_im2col (#5, fwd)"),
           ("conv3d_dw_partial", "conv3d_dw (#2) partials"),
@@ -164,7 +173,8 @@ def expected_launches(selector: str, steps: int, eval_batches: int, dw: int) -> 
 
 # (run name, PCRL_CONV3D, --amp) of phases 6 and 7
 RUNS = [("f32", "pallas", False), ("amp", "pallas", True),
-        ("packed", "packed", False), ("im2col", "im2col", False)]
+        ("packed", "packed", False), ("im2col", "im2col", False),
+        ("packed_amp", "packed", True), ("im2col_amp", "im2col", True)]
 #: the run whose count is each kernel's ``launches`` in the kernels line
 LAUNCHED_IN = {"conv3d_fwd": "f32", "conv3d_dw": "f32", "head_fwd": "f32",
                "head_bwd": "f32", "conv3d_im2col": "im2col", "conv3d_packed": "packed"}
@@ -282,6 +292,134 @@ def head_cases(dtype):
                            [0] * 3, 1, [True, True, False]),
                        4.0 * m * 27 * ci, es * (2 * m * ci + m + 27 * ci) + 4 * 27 * ci,
                        ("out", "dw"))
+
+
+# (B, D, H, W, Ci, Co) of phase 5's shapes off the main path: every Ci and
+# Co of the set, W = 1, odd W, planes of 1..63 voxels and one of 70.
+ODD_SHAPES = [(2, 3, 5, 1, 1, 5), (1, 4, 7, 3, 2, 70), (2, 3, 6, 5, 3, 5),
+              (1, 2, 70, 1, 17, 70), (3, 2, 2, 2, 17, 5), (1, 3, 7, 9, 2, 5),
+              (2, 2, 3, 3, 1, 70), (1, 5, 9, 7, 3, 70)]
+
+
+def odd_cases(dtype):
+    """(kernel, label, kernel_fn, plain_fn) at ``ODD_SHAPES``: #6 forward
+    and dx, #5 forward, #1 forward and dx and #2, every one through its
+    route (padded channels where the copies cannot take them)."""
+    import torch
+
+    from pcrlv2_tpu_torch.ops import conv3d_kernel as ck
+    from pcrlv2_tpu_torch.ops import conv3d_packed as cp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for shp in ODD_SHAPES:
+        ci, co = shp[4:]
+        x = (torch.randn(shp[:4] + (ci,), generator=gen, device=dev) * 0.5).to(dtype)
+        g = (torch.randn(shp[:4] + (co,), generator=gen, device=dev) * 0.5).to(dtype)
+        w = (torch.rand(co, ci, 3, 3, 3, generator=gen, device=dev) * 2 - 1) / math.sqrt(27 * ci)
+        wm, wt = ck.repack_weight(w, dtype), ck.flipped_weight(w, dtype)
+        bias = (torch.rand(co, generator=gen, device=dev) - 0.5).to(dtype)
+        label = f"{shp[:4]} {ci}->{co} ({ck.route(ci, co, dtype)} / {cp.route(ci, co, dtype)})"
+        for kernel, kfn, pfn in [("conv3d_fwd", ck.conv3d_fwd, ck.conv3d_fwd_plain),
+                                 ("conv3d_packed", cp.conv3d_packed_fwd, cp.conv3d_packed_plain),
+                                 ("conv3d_im2col", cp.conv3d_im2col_fwd, cp.conv3d_im2col_plain)]:
+            yield (kernel, label + " fwd", lambda x=x, wm=wm, bias=bias, f=kfn: f(x, wm, bias),
+                   lambda x=x, wm=wm, bias=bias, f=pfn: f(x, wm, bias), "out")
+            if kernel != "conv3d_im2col":
+                yield (kernel, label + " dx", lambda g=g, wt=wt, f=kfn: f(g, wt, None),
+                       lambda g=g, wt=wt, f=pfn: f(g, wt, None), "out")
+        yield ("conv3d_dw", label + " dw", lambda x=x, g=g: ck.conv3d_dw(x, g),
+               lambda x=x, g=g: ck.conv3d_dw_plain(x, g), "dw")
+
+
+def check_odd_shapes():
+    """Phase 5, the shapes off the main path: every case of ``odd_cases``
+    within ``TOL`` of its plain version, with the output's shape and dtype,
+    in f32 and bf16.  Returns one row per case."""
+    import torch
+
+    rows, failures = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for kernel, label, kfn, pfn, kind in odd_cases(dtype):
+            got, ref = kfn(), pfn()
+            torch.cuda.synchronize()
+            rel, err = rel_err(got, ref)
+            ok = got.shape == ref.shape and got.dtype == ref.dtype and rel <= TOL[(dname, kind)]
+            rows.append({"kernel": kernel, "case": label, "dtype": dname, "rel_err": rel,
+                         "max_abs_err": err, "ok": ok})
+            if not ok:
+                failures.append(f"{dname} {kernel} {label}: rel err {rel:.3e}, shape "
+                                f"{tuple(got.shape)} vs {tuple(ref.shape)}")
+    if failures:
+        raise AssertionError("odd shapes:\n  " + "\n  ".join(failures))
+    return rows
+
+
+def in_channels_check(in_channels: int = 2):
+    """Phase 5, ``PCRLv23d(in_channels=2)``: the f32 train-mode forward on the
+    card within 1e-4 of the CPU's on the same weights, then one train step
+    on the card under each ``PCRL_CONV3D`` value (every 3³ conv kernel of the
+    selector launched, losses and parameters finite, parameters moved)."""
+    import torch
+
+    from pcrlv2_tpu_torch.core.precision import PARITY_POLICY
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.train.step import TrainState, train_step
+
+    rng = torch.Generator().manual_seed(9)
+    x = torch.rand(2, 16, 16, 8, in_channels, generator=rng)
+
+    def forward(device):
+        model = PCRLv23d(policy=PARITY_POLICY, in_channels=in_channels, seed=4, device=device)
+        with torch.no_grad():
+            out, _, masks = model(x.to(device))
+        return [v.float().cpu() for v in (out, *masks)]
+
+    err = max((a - b).abs().max().item() for a, b in zip(forward("cuda"), forward("cpu")))
+    if not err <= 1e-4:
+        raise AssertionError(f"in_channels={in_channels}: card vs CPU forward {err:.3e} > 1e-4")
+    views = {"x1": x, "x2": torch.rand(x.shape, generator=rng),
+             "gt": torch.rand(x.shape[:-1] + (1,), generator=rng),
+             "locals": torch.rand((2, 2, 8, 8, 8, in_channels), generator=rng)}
+    views = {k: v.cuda() for k, v in views.items()}
+    steps = {}
+    for selector, (fwd, _) in FWD_DX.items():
+        model = PCRLv23d(in_channels=in_channels, seed=4, device="cuda")
+        before = [p.detach().clone() for p in model.parameters()]
+        state = TrainState(model)
+        with conv_selector(selector):
+            _build.launches.clear()
+            metrics = train_step(state, views, [0, 1, 2, 0, 1], lr=0.1, epoch=0)
+            torch.cuda.synchronize()
+        counts = {k: _build.launches[k] for k in KERNELS}
+        loss = float(metrics["loss"])
+        moved = any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+        finite = all(torch.isfinite(p).all().item() for p in model.parameters())
+        if not (math.isfinite(loss) and not metrics["skipped"] and moved and finite
+                and counts[fwd] > 0 and counts["conv3d_dw"] > 0):
+            raise AssertionError(f"in_channels={in_channels} step under {selector}: loss {loss}, "
+                                 f"skipped {metrics['skipped']}, moved {moved}, finite "
+                                 f"{finite}, launches {counts}")
+        steps[selector] = {"loss": loss, "launches": counts}
+    return {"f32_forward_max_abs_err": err, "steps": steps}
+
+
+def spills(report: dict) -> dict:
+    """Kernels whose ``-Xptxas -v`` report shows spill stores or loads:
+    {source: {kernel (mangled): (store bytes, load bytes)}}."""
+    out = {}
+    for name, (_, log) in report.items():
+        fn = None
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "spill stores" in line and fn is not None:
+                nums = [int(t) for t in line.replace(",", " ").split() if t.isdigit()]
+                if len(nums) >= 3 and (nums[1] or nums[2]):
+                    out.setdefault(name, {})[fn] = (nums[1], nums[2])
+    return out
 
 
 def rel_err(got, ref):
@@ -584,8 +722,11 @@ def profile_cli(argv, step_s: float):
     for name, us, _ in kernels:
         label = next((lab for frag, lab in GROUPS if frag in name.lower()), "other")
         groups[label] += us / 1e3 / PROFILED
+    # #5's and #6's kernels by name: bf16 runs must show their mma kernels
+    slab = sorted({m.group(0) for n, _, _ in kernels
+                   for m in [re.search(r"conv3d_(packed|im2col)_kernel_\w+(<[^>]*>)?", n)] if m})
     return {"device_ms_per_step": busy_ms, "busy_share": busy_ms / 1e3 / step_s,
-            "ms_per_step_by_group": groups,
+            "ms_per_step_by_group": groups, "slab_kernels": slab,
             "top_kernels": [{"name": n[:120], "ms_per_step": us / 1e3 / PROFILED,
                              "launches_per_step": c / PROFILED}
                             for n, us, c in sorted(kernels, key=lambda k: -k[1])[:15]]}
@@ -595,7 +736,8 @@ def print_profile(name: str, p: dict):
     print(f"[7] profile {name}: device {p['device_ms_per_step']:.2f} ms/step, "
           f"busy {p['busy_share']:.1%}; " + ", ".join(
               f"{k} {v:.2f}" for k, v in sorted(
-                  p["ms_per_step_by_group"].items(), key=lambda kv: -kv[1]) if v),
+                  p["ms_per_step_by_group"].items(), key=lambda kv: -kv[1]) if v)
+          + (f"; #5/#6 kernels {p['slab_kernels']}" if p["slab_kernels"] else ""),
           flush=True)
 
 
@@ -732,6 +874,8 @@ def main() -> int:
             for line in log.splitlines():
                 if "Used" in line or "spill" in line:
                     print(f"    {name}: {line.strip()}")
+        spilled = spills(report)
+        print(f"[2] kernels that spill: {spilled if spilled else 'none'}", flush=True)
 
         print("[3,4] kernels vs plain versions at the main-path shapes", flush=True)
         rows = []
@@ -745,6 +889,16 @@ def main() -> int:
               f"(of the largest entry, from the CPU's f32 forward, vs limit): " + ", ".join(
                   f"{k} {v['card_vs_cpu_f32']:.2e} vs {v['limit']:.2e}"
                   for k, v in bf16_model.items()), flush=True)
+        odd_rows = check_odd_shapes()
+        print(f"[5] shapes off the main path: {len(odd_rows)} launches within tolerance, "
+              f"largest rel err f32 {max(r['rel_err'] for r in odd_rows if r['dtype'] == 'float32'):.2e}"
+              f", bf16 {max(r['rel_err'] for r in odd_rows if r['dtype'] == 'bfloat16'):.2e}",
+              flush=True)
+        in_ch = in_channels_check()
+        print(f"[5] PCRLv23d(in_channels=2): card vs CPU f32 forward "
+              f"{in_ch['f32_forward_max_abs_err']:.2e}; one train step under each selector, "
+              f"losses {({k: round(v['loss'], 5) for k, v in in_ch['steps'].items()})}",
+              flush=True)
 
         runs = {}
         for name, selector, amp in RUNS:
@@ -763,6 +917,9 @@ def main() -> int:
                 profiles[name] = p = profile_cli(cli_argv(amp, tmp, WARMUP + PROFILED + 1),
                                                  runs[name]["step_s_median"])
             print_profile(name, p)
+            slab = p["slab_kernels"]
+            if amp and selector != "pallas" and not (slab and all("_mma" in k for k in slab)):
+                raise AssertionError(f"{name}: #5/#6 ran {p['slab_kernels']}, not on tensor cores")
 
         with tempfile.TemporaryDirectory() as tmp:
             runs["disk"] = d = run_disk(tmp)
@@ -801,8 +958,9 @@ def main() -> int:
                     for name, (src, replaces) in TOOL_KERNELS.items()]
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
             json.dump({"card": card, "build_s": {k: v[0] for k, v in report.items()},
-                       "rows": rows, "model_check": {"f32_max_abs_err": err,
-                                                     "bf16": bf16_model},
+                       "spills": spilled, "rows": rows, "odd_rows": odd_rows,
+                       "in_channels": in_ch,
+                       "model_check": {"f32_max_abs_err": err, "bf16": bf16_model},
                        "runs": runs, "profiles": profiles,
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
                        "tool_summary": tool_summary}, fh, indent=1)

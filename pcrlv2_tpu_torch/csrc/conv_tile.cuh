@@ -1,5 +1,5 @@
-// The 64x64 output tile shared by the slab-staged 3^3 conv kernels
-// (conv3d_packed.cu, proto_conv.cu): 256 threads, a 4x4 float micro-tile
+// The 64x64 output tile of the slab-staged 3^3 conv prototype
+// (proto_conv.cu, kernel #7): 256 threads, a 4x4 float micro-tile
 // each; tile placement over the (b, d) planes, bias init, the FMA loop over
 // a staged slab and the store.
 #pragma once

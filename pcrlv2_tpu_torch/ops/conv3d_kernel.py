@@ -19,9 +19,12 @@ header says what bounds each kernel on the H100 and how the design answers it.
 * the stem (Ci = 1) takes a scalar-gather kernel of its own, forward and dw;
 * db: ``g.sum`` in f32.
 
-The kernels copy 16-byte vectors: on the card Ci (unless 1) and Co must be
-multiples of 8 (bf16) or 4 (f32) and every pointer 16-byte aligned; the
-wrappers raise otherwise (``check_vectors``).
+The kernels copy 16-byte vectors: Ci (unless 1) and Co must be multiples
+of 8 (bf16) or 4 (f32) and every pointer 16-byte aligned.  A wrapper given
+other channel counts zero-pads them to those multiples, launches on the
+padded tensors and slices the result back (``route``, ``padded_operands``):
+zero channels add exact zeros to every sum.  It raises on an unaligned
+pointer (``check_vectors``).
 
 A wrapper given CPU tensors runs the plain version (the same 27 shifted-window
 products with f32 accumulation); given CUDA tensors it launches the kernel or
@@ -166,6 +169,39 @@ def dw_split(m: int, rows: int, co: int, sms: int) -> tuple[int, int]:
     return math.ceil(m / chunk), chunk
 
 
+def vector_channels(ci: int, co: int, dtype: torch.dtype, stem: bool = True) -> tuple[int, int]:
+    """(Ci, Co) as the kernels run them: each rounded up to a multiple of
+    ``_VEC``, except Ci = 1 where ``stem`` (the stem kernels take it)."""
+    vec = _VEC[dtype]
+    return (1 if stem and ci == 1 else -(-ci // vec) * vec), -(-co // vec) * vec
+
+
+def route(ci: int, co: int, dtype: torch.dtype) -> str:
+    """Which launch a (Ci, Co) conv takes on the card, forward and filter
+    grad: ``"stem"`` (Ci = 1, the scalar-gather kernels), ``"vector"`` (Ci
+    and Co multiples of ``_VEC``: the tensors as they are) or ``"padded"``
+    (the same tensor-core / FMA kernels on zero-padded channels)."""
+    if ci == 1:
+        return "stem"
+    return "vector" if vector_channels(ci, co, dtype) == (ci, co) else "padded"
+
+
+def pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with its last axis zero-padded to ``n`` (``t`` itself if it fits)."""
+    return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
+
+
+def padded_operands(x: torch.Tensor, wmat: torch.Tensor, bias: torch.Tensor | None,
+                    ci: int, co: int):
+    """x (…, Ci₀), wmat (27, Ci₀, Co₀), bias (Co₀,) zero-padded to ``ci``
+    input and ``co`` output channels (unchanged where they already fit)."""
+    ci0, co0 = wmat.shape[1:]
+    if (ci0, co0) == (ci, co):
+        return x, wmat, bias
+    return (pad_last(x, ci), F.pad(wmat, (0, co - co0, 0, ci - ci0)),
+            None if bias is None else pad_last(bias, co))
+
+
 def check_vectors(tensors, ci: int, co: int) -> None:
     """Raise unless the kernels' 16-byte copies can take these tensors: Ci
     (unless 1, the stem) and Co multiples of ``_VEC`` and every pointer
@@ -195,6 +231,9 @@ def conv3d_fwd(x: torch.Tensor, wmat: torch.Tensor,
     tensors = (x, wmat) if bias is None else (x, wmat, bias)
     if _build.check_inputs(*tensors) == "cpu":
         return conv3d_fwd_plain(x, wmat, bias)
+    ci0, co0 = ci, co
+    ci, co = vector_channels(ci, co, x.dtype)
+    x, wmat, bias = padded_operands(x, wmat, bias, ci, co)
     check_vectors((x, wmat), ci, co)
     m = b * d * h * w
     s, kchunk = fwd_split(m, 27 * ci, co, _sms(x), _BK[x.dtype])
@@ -207,7 +246,7 @@ def conv3d_fwd(x: torch.Tensor, wmat: torch.Tensor,
         b, d, h, w, ci, co, fwd_tile(ci, co), s, kchunk, _build.stream_ptr(x))
     _build.check(err, "conv3d_fwd launch")
     _build.launches["conv3d_fwd"] += 1
-    return out
+    return out if co == co0 else out[..., :co0].contiguous()
 
 
 def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -218,6 +257,9 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"g {tuple(g.shape)} does not match x {tuple(x.shape)}")
     if _build.check_inputs(x, g) == "cpu":
         return conv3d_dw_plain(x, g)
+    ci0, co0 = ci, co
+    ci, co = vector_channels(ci, co, x.dtype)
+    x, g = pad_last(x, ci), pad_last(g, co)
     check_vectors((x, g), ci, co)
     bm, bn = dw_tile(ci, co)
     s, chunk = dw_split(b * d * h * w, 27 * ci, co, _sms(x))
@@ -228,7 +270,7 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         b, d, h, w, ci, co, bm, bn, s, chunk, _build.stream_ptr(x))
     _build.check(err, "conv3d_dw launch")
     _build.launches["conv3d_dw"] += 1
-    return out
+    return out if (ci, co) == (ci0, co0) else out[:, :ci0, :co0].contiguous()
 
 
 class _Conv3dFn(torch.autograd.Function):

@@ -16,6 +16,11 @@ the tiling answers it.  Weights come as ``conv3d_kernel.repack_weight``'s
   ``conv3d_kernel.conv3d_fwd`` on flipped weights and dw by ``conv3d_dw``
   (XLA transposes in JAX, ``pallas_conv.py:476-508``).
 
+On the card both kernels take 128-voxel × N-channel tiles (``tiles``,
+N = ``conv3d_kernel.fwd_tile``) and walk K in stages of one depth tap and
+one channel chunk (``stages``), split where the grid is short of the card
+(``split``); ``route`` says which shapes run on zero-padded channels.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  It never falls back.
 """
@@ -31,28 +36,25 @@ import torch.nn.functional as F
 from pcrlv2_tpu_torch.ops import _build
 from pcrlv2_tpu_torch.ops import conv3d_kernel as ck
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGS = {
-    "conv3d_packed": (_P, _P, _P, _P) + (_I,) * 10 + (_L, _P),
-    "conv3d_im2col": (_P, _P, _P, _P) + (_I,) * 11 + (_L, _P),
-}
-_BM = 64      # the kernels' output rows (voxels) per block
-_BN = 64      # output channels per block
-_CK = 16      # input channels per staged chunk
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIG = (_P,) * 5 + (_I,) * 15 + (_P,)
+_BM = 128     # the kernels' output rows (voxels) per block
+_STAGES = 2   # depth of the kernels' shared-memory ring
+#: per dtype: (input channels per stage, row pad in elements)
+_SLAB = {torch.bfloat16: (16, 8), torch.float32: (8, 4)}
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
-_WEIGHT_SMEM = 4 * 9 * _CK * _BN
 
 
 def _fn(kind: str, dtype: torch.dtype):
-    return _build.entry("conv3d_packed", kind, dtype, _SIGS[kind])
+    return _build.entry("conv3d_packed", kind, dtype, _SIG)
 
 
 def tiles(b: int, d: int, h: int, w: int) -> dict:
-    """How the kernels cut the output into blocks of 64 voxels: planes of at
-    least 64 voxels in ``tpp`` segments of ``L = 64`` consecutive positions
-    (``P = 1``); smaller planes ``P = 64 // (h·w)`` whole to a block
-    (``L = h·w``).  ``rows`` is the most input rows of one plane an
+    """How the kernels cut the output into blocks of ``_BM`` voxels: planes
+    of at least ``_BM`` voxels in ``tpp`` segments of ``L = _BM`` consecutive
+    positions (``P = 1``); smaller planes ``P = _BM // (h·w)`` whole to a
+    block (``L = h·w``).  ``rows`` is the most input rows of one plane an
     im2col block stages, halo included."""
     hw = h * w
     if hw >= _BM:
@@ -66,14 +68,54 @@ def tiles(b: int, d: int, h: int, w: int) -> dict:
     return {"P": p, "L": seg, "tpp": tpp, "tiles": n, "rows": rows}
 
 
-def smem_bytes(kind: str, geo: dict, w: int) -> int:
-    """Dynamic shared memory of one block: the f32 slab (leading dimension
-    padded by one float, rounded up to 16 bytes) and the weights."""
+def slab_rows(kind: str, geo: dict, w: int) -> int:
+    """Slab rows of one stage: packed, ``L + 2W`` plane positions per
+    segment (the output rows and a row of halo above and below); im2col,
+    ``rows`` input rows of ``W + 2`` positions per plane."""
     if kind == "conv3d_packed":
-        slab = geo["P"] * (geo["L"] + 2 * w) * (3 * _CK + 1)
-    else:
-        slab = 3 * geo["P"] * geo["rows"] * (w + 2) * (_CK + 1)
-    return 4 * (-(-slab // 4) * 4) + _WEIGHT_SMEM
+        return geo["P"] * (geo["L"] + 2 * w)
+    return geo["P"] * geo["rows"] * (w + 2)
+
+
+def smem_bytes(kind: str, geo: dict, w: int, bn: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block: ``_STAGES`` slabs (rows of
+    ``3·BK`` packed or ``BK`` im2col channels, padded) and weight tiles (9
+    taps × BK × ``bn`` columns, padded), plus the slab's row table."""
+    bk, pad = _SLAB[dtype]
+    es = torch.tensor([], dtype=dtype).element_size()
+    rows = slab_rows(kind, geo, w)
+    lds = (3 if kind == "conv3d_packed" else 1) * bk + pad
+    return es * _STAGES * (rows * lds + 9 * bk * (bn + pad)) + 8 * rows
+
+
+def stages(kind: str, ci: int, dtype: torch.dtype) -> list:
+    """The K walk of one block as (td, first channel) per stage, in order:
+    packed, td outer and the Ci chunks inner; im2col, the chunks outer and
+    td inner.  Each stage covers taps 9·td .. 9·td + 8 of its channels."""
+    bk = _SLAB[dtype][0]
+    chunks = range(0, ci, bk)
+    if kind == "conv3d_packed":
+        return [(td, c0) for td in range(3) for c0 in chunks]
+    return [(td, c0) for c0 in chunks for td in range(3)]
+
+
+def split(tiles_mn: int, nst: int, sms: int) -> tuple[int, int]:
+    """(splits, stages per split) of a block's ``nst`` stages: where the
+    grid of ``tiles_mn`` (row, column) tiles has fewer than two blocks per
+    SM, split the stages so it has about two, each split at least two
+    stages deep."""
+    s = 1 if tiles_mn >= 2 * sms else max(1, min(math.ceil(2 * sms / tiles_mn), nst // 2))
+    per = math.ceil(nst / s)
+    return math.ceil(nst / per), per
+
+
+def route(ci: int, co: int, dtype: torch.dtype) -> str:
+    """``"vector"``: Ci and Co are multiples of the 16-byte copy's width (8
+    bf16, 4 f32) and the kernels take the tensors as they are;
+    ``"padded"``: any other shape, the stem (Ci = 1) included, runs the same
+    kernels on channels zero-padded to those multiples
+    (``conv3d_kernel.padded_operands``) and is sliced back."""
+    return "vector" if ck.vector_channels(ci, co, dtype, stem=False) == (ci, co) else "padded"
 
 
 # ---------------------------------------------------------------------------
@@ -131,20 +173,28 @@ def _launch(kind: str, plain, x: torch.Tensor, wmat: torch.Tensor,
         return plain(x, wmat, bias)
     if x.numel() == 0:
         raise ValueError(f"{kind} takes a non-empty input, got {tuple(x.shape)}")
+    ci_p, co_p = ck.vector_channels(ci, co, x.dtype, stem=False)
+    x, wmat, bias = ck.padded_operands(x, wmat, bias, ci_p, co_p)
+    ck.check_vectors((x, wmat), ci_p, co_p)
     geo = tiles(b, d, h, w)
-    smem = smem_bytes(kind, geo, w)
+    bn = ck.fwd_tile(ci_p, co_p)
+    smem = smem_bytes(kind, geo, w, bn, x.dtype)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{kind}: W={w} needs {smem} bytes of shared memory "
                          f"per block, more than the {SMEM_LIMIT} a block has")
-    out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
-    extra = (geo["rows"],) if kind == "conv3d_im2col" else ()
+    nst = len(stages(kind, ci_p, x.dtype))
+    s, per = split(geo["tiles"] * math.ceil(co_p / bn), nst, ck._sms(x))
+    out = torch.empty((b, d, h, w, co_p), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((s, b * d * h * w, co_p), dtype=torch.float32, device=x.device)
+               if s > 1 else None)
     err = _fn(kind, x.dtype)(
         x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), b, d, h, w, ci, co, geo["P"], geo["L"], geo["tpp"],
-        geo["tiles"], *extra, smem, _build.stream_ptr(x))
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        b, d, h, w, ci_p, co_p, geo["P"], geo["L"], geo["tpp"], geo["rows"],
+        slab_rows(kind, geo, w), geo["tiles"], bn, s, per, _build.stream_ptr(x))
     _build.check(err, f"{kind} launch")
     _build.launches[kind] += 1
-    return out
+    return out if co_p == co else out[..., :co].contiguous()
 
 
 def conv3d_packed_fwd(x: torch.Tensor, wmat: torch.Tensor,

@@ -24,12 +24,12 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 from pcrlv2_tpu_torch.ops import _build
-from pcrlv2_tpu_torch.ops import conv3d_packed as cp
 from pcrlv2_tpu_torch.ops.conv3d_kernel import OFFSETS
 from pcrlv2_tpu_torch.tools._common import Case, fmt_ms, rel_err, setup, tflops, time_ms
 
@@ -41,6 +41,30 @@ MODES = ("27", "9")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = (_P, _P, _P, _P) + (_I,) * 11 + (_L, _P)
+
+
+_BM = 64   # output rows (voxels) per block (csrc/conv_tile.cuh)
+_BN = 64   # output channels per block
+#: shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232448
+
+
+def tiles(b: int, d: int, h: int, w: int) -> dict:
+    """How the kernel cuts the output into blocks of 64 voxels: planes of at
+    least 64 voxels in ``tpp`` segments of ``L = 64`` consecutive positions
+    (``P = 1``); smaller planes ``P = 64 // (h·w)`` whole to a block
+    (``L = h·w``).  ``rows`` is the most input rows of one plane a block
+    stages, halo included."""
+    hw = h * w
+    if hw >= _BM:
+        p, seg, tpp = 1, _BM, math.ceil(hw / _BM)
+        n = b * d * tpp
+        rows = (w + _BM - 2) // w + 3
+    else:
+        p, seg, tpp = _BM // hw, hw, 1
+        n = math.ceil(b * d / p)
+        rows = h + 2
+    return {"P": p, "L": seg, "tpp": tpp, "tiles": n, "rows": rows}
 
 
 def taps_per_pass(mode: str) -> int:
@@ -57,7 +81,7 @@ def smem_bytes(mode: str, geo: dict, w: int) -> int:
     dimension padded by one float, rounded up to 16 bytes) and the weights."""
     taps, ck = taps_per_pass(mode), chunk_channels(mode)
     slab = taps // 9 * geo["P"] * geo["rows"] * (w + 2) * (ck + 1)
-    return 4 * (-(-slab // 4) * 4) + 4 * taps * ck * cp._BN
+    return 4 * (-(-slab // 4) * 4) + 4 * taps * ck * _BN
 
 
 # ---------------------------------------------------------------------------
@@ -110,11 +134,11 @@ def proto_conv(x: torch.Tensor, wmat: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"proto_conv takes a non-empty input, got {tuple(x.shape)}")
     kind = f"proto_conv{mode}"
     co = wmat.shape[1]
-    geo = cp.tiles(b, d, h, w)
+    geo = tiles(b, d, h, w)
     smem = smem_bytes(mode, geo, w)
-    if smem > cp.SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(f"{kind}: W={w} needs {smem} bytes of shared memory per "
-                         f"block, more than the {cp.SMEM_LIMIT} a block has")
+                         f"block, more than the {SMEM_LIMIT} a block has")
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     err = _build.entry("proto_conv", kind, x.dtype, _SIG)(
         x.data_ptr(), wmat.data_ptr(), bias.data_ptr(), out.data_ptr(), b, d, h, w,

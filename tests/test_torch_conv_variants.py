@@ -108,13 +108,14 @@ def test_plain_versions_match_the_implicit_gemm(shape):
 def test_tiles_cover_every_voxel_once(b, d, h, w):
     """The kernels' block geometry: each output voxel belongs to exactly one
     block row; the im2col slab's rows hold every row a block reads; the
-    main-path shapes fit a block's shared memory."""
+    main-path shapes fit a block's shared memory in both dtypes at the
+    widest tile (128 columns)."""
     geo = cp.tiles(b, d, h, w)
     hits = np.zeros(b * d * h * w, np.int64)
     for t in range(geo["tiles"]):
         plane0 = t // geo["tpp"] if geo["P"] == 1 else t * geo["P"]
         p0 = (t % geo["tpp"]) * geo["L"] if geo["P"] == 1 else 0
-        for r in range(64):
+        for r in range(cp._BM):
             s, q = divmod(r, geo["L"])
             plane, p = plane0 + s, p0 + q
             if s < geo["P"] and plane < b * d and p < h * w:
@@ -122,7 +123,8 @@ def test_tiles_cover_every_voxel_once(b, d, h, w):
                 assert p // w - p0 // w + 3 <= geo["rows"]
     assert (hits == 1).all()
     for kind in ("conv3d_packed", "conv3d_im2col"):
-        assert cp.smem_bytes(kind, geo, w) <= cp.SMEM_LIMIT
+        for dtype in (torch.float32, torch.bfloat16):
+            assert cp.smem_bytes(kind, geo, w, 128, dtype) <= cp.SMEM_LIMIT
 
 
 def _spy(monkeypatch, calls):
