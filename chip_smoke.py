@@ -20,9 +20,11 @@ Phases, any failure exits non-zero without the final line:
    off the main path (``ODD_SHAPES``: Ci of 1, 2, 3 and 17, Co of 5 and 70,
    W = 1, odd W, planes of under 64 voxels), where #5, #6 and the padded
    routes of #1 and #2 are held against their plain versions in f32 and
-   bf16, and ``PCRLv23d(in_channels=2)``: its f32 forward on the card
-   against the CPU and one train step on the card under each
-   ``PCRL_CONV3D`` value;
+   bf16, and the head kernels (#3 forward, #4 backward) at
+   ``HEAD_ODD_SHAPES`` (Ci of 1, 3, 17 and 70, W = 1, odd W, a plane of 70,
+   D < 3), through the padded route where it applies; then
+   ``PCRLv23d(in_channels=2)``: its f32 forward on the card against the CPU
+   and one train step on the card under each ``PCRL_CONV3D`` value;
 6. run the port's CLI at full width (``--synthetic --d 3 --b 4 --epochs 0
    --steps_per_epoch 10``) under ``PCRL_CONV3D=pallas`` (the default) in
    f32 and with ``--amp``, and under ``packed`` and ``im2col`` likewise, with
@@ -31,7 +33,12 @@ Phases, any failure exits non-zero without the final line:
    every loss finite, and the ``.pt`` must load strictly.
    The step time is the median over the steps after the first ``WARMUP``
    of each step's own time, recovered from the running average ``BT`` that
-   the CLI logs after every step;
+   the CLI logs after every step.  Then ``pallas`` in f32 and with ``--amp``
+   for ``LONG_STEPS`` steps at the CLI's default ``--log_every 10``, where
+   the host reads the metrics only at the log: step time = the mean of the
+   windows 2-3.  Last, one ``train_step`` on device-resident views, after a
+   warm-up step, under ``torch.cuda.set_sync_debug_mode("error")``: it must
+   not synchronise with the device (the loss guard runs on the device);
 7. run the same CLI training path (``cli.main.prepare`` → ``Trainer`` behind
    ``device_prefetch``) again under ``torch.profiler`` for each of those
    runs: device time per step by kernel group over ``PROFILED`` steps after
@@ -54,7 +61,7 @@ Phases, any failure exits non-zero without the final line:
    modes), #8 and #9 held against their plain versions at every tool shape
    at B = 32 in bf16 and at B = 2 in f32 (TF32 off), the 14 probes of #10
    with tolerance 0, and each kernel, its plain version and the PyTorch call
-   for the same function timed at B = 32.  No training step launches these
+   for the same function timed at B = 32 in bf16 and at B = 2 in f32.  No training step launches these
    kernels, so their ``launches`` in the kernels line are the counts of
    the tool runs.
 
@@ -67,6 +74,7 @@ bounds), the CLI runs and the profiles go to
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -104,6 +112,8 @@ CONVS = [("down_tr64.ops.0", 1, 32, 0), ("down_tr64.ops.1", 32, 64, 0),
 HEADS = [("up_tr256.head", 256, 2), ("up_tr128.head", 128, 1), ("up_tr64.head", 64, 0)]
 BATCH = 4
 STEPS = 10     # CLI steps per run (phase 6)
+LONG_STEPS = 30  # CLI steps of the --log_every 10 runs (phase 6)
+LOG_EVERY = 10   # the CLI's default --log_every
 WARMUP = 3     # first CLI steps left out of the step time and the profile
 PROFILED = 4   # steps under the profiler (phase 7)
 # (batch, input size): the two global views run at B each, the 6 local
@@ -332,25 +342,62 @@ def odd_cases(dtype):
                lambda x=x, g=g: ck.conv3d_dw_plain(x, g), "dw")
 
 
+# (B, D, H, W, Ci) of phase 5's head shapes off the main path: Ci of 1, 3, 17
+# and 70 (padded route) and 64, W = 1, odd W (33: a tile past the plane's
+# edge), a plane of 70, D < 3.
+HEAD_ODD_SHAPES = [(2, 3, 5, 1, 1), (1, 2, 7, 10, 3), (2, 1, 6, 5, 17),
+                   (1, 4, 70, 1, 70), (3, 2, 3, 9, 70), (1, 3, 5, 33, 64)]
+
+
+def head_odd_cases(dtype):
+    """(kernel, label, kernel_fn, plain_fn, kinds) at ``HEAD_ODD_SHAPES``: #3
+    forward and #4 backward, each through its route."""
+    import torch
+
+    from pcrlv2_tpu_torch.ops import head_conv as hc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for shp in HEAD_ODD_SHAPES:
+        ci = shp[4]
+        x = (torch.randn(shp, generator=gen, device=dev) * 0.5).to(dtype)
+        g = (torch.randn(shp[:4], generator=gen, device=dev) * 0.5).to(dtype)
+        w = (torch.rand(1, ci, 3, 3, 3, generator=gen, device=dev) * 2 - 1) / math.sqrt(27 * ci)
+        k = hc.flatten_kernel(w, dtype)
+        label = f"{shp[:4]} {ci}->1 ({hc.route(ci, dtype)})"
+        yield ("head_fwd", label + " fwd", lambda x=x, k=k: hc.head_fwd(x, k),
+               lambda x=x, k=k: hc.head_fwd_plain(x, k), ("out",))
+        yield ("head_bwd", label + " bwd", lambda x=x, g=g, k=k: hc.head_bwd(x, g, k),
+               lambda x=x, g=g, k=k: hc.head_bwd_plain(x, g, k), ("out", "dw"))
+
+
 def check_odd_shapes():
     """Phase 5, the shapes off the main path: every case of ``odd_cases``
-    within ``TOL`` of its plain version, with the output's shape and dtype,
+    and ``head_odd_cases`` within ``TOL`` of its plain version, with the output's shape and dtype,
     in f32 and bf16.  Returns one row per case."""
     import torch
 
     rows, failures = [], []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for kernel, label, kfn, pfn, kind in odd_cases(dtype):
+        for kernel, label, kfn, pfn, kinds in itertools.chain(odd_cases(dtype),
+                                                              head_odd_cases(dtype)):
             got, ref = kfn(), pfn()
             torch.cuda.synchronize()
-            rel, err = rel_err(got, ref)
-            ok = got.shape == ref.shape and got.dtype == ref.dtype and rel <= TOL[(dname, kind)]
+            kinds = kinds if isinstance(kinds, tuple) else (kinds,)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            errs = [rel_err(a, r) for a, r in zip(got, ref)]
+            rel, err = max(e[0] for e in errs), max(e[1] for e in errs)
+            ok = all(a.shape == r.shape and a.dtype == r.dtype and e[0] <= TOL[(dname, kd)]
+                     for a, r, e, kd in zip(got, ref, errs, kinds))
             rows.append({"kernel": kernel, "case": label, "dtype": dname, "rel_err": rel,
                          "max_abs_err": err, "ok": ok})
             if not ok:
-                failures.append(f"{dname} {kernel} {label}: rel err {rel:.3e}, shape "
-                                f"{tuple(got.shape)} vs {tuple(ref.shape)}")
+                failures.append(f"{dname} {kernel} {label}: rel err "
+                                f"{[e[0] for e in errs]}, shapes "
+                                f"{[tuple(a.shape) for a in got]} vs "
+                                f"{[tuple(r.shape) for r in ref]}")
     if failures:
         raise AssertionError("odd shapes:\n  " + "\n  ".join(failures))
     return rows
@@ -533,9 +580,9 @@ def model_reference_check():
     return max(errs), bf16
 
 
-def cli_argv(amp: bool, out_dir: str, steps: int):
+def cli_argv(amp: bool, out_dir: str, steps: int, log_every: int = 1):
     return (["--synthetic", "--d", "3", "--phase", "pretask", "--b", str(BATCH),
-             "--epochs", "0", "--steps_per_epoch", str(steps), "--log_every", "1",
+             "--epochs", "0", "--steps_per_epoch", str(steps), "--log_every", str(log_every),
              "--seed", "0", "--output", out_dir] + (["--amp"] if amp else []))
 
 
@@ -577,13 +624,17 @@ def step_rows(metrics_path: str, epoch: int = 0):
 
 
 def step_times(steps) -> list:
-    """Each step's own time from the running average ``BT`` (log_every=1)."""
+    """Each logged window's own mean step time from the running average
+    ``BT`` (at --log_every 1, each step's own time)."""
     avg = [r["BT"] for r in steps]
     return [avg[0]] + [(k + 1) * avg[k] - k * avg[k - 1] for k in range(1, len(avg))]
 
 
-def run_cli(selector: str, amp: bool, out_dir: str):
-    """Phase 6: the port's CLI in this process, counters read around it."""
+def run_cli(selector: str, amp: bool, out_dir: str, steps: int = STEPS, log_every: int = 1):
+    """Phase 6: the port's CLI in this process, counters read around it.
+    At ``log_every`` > 1 the logged rows are windows: ``step_s`` then holds
+    each window's mean step time and the step time is the mean of windows
+    2-3."""
     import torch
 
     from pcrlv2_tpu_torch.cli.main import main as cli_main
@@ -595,21 +646,58 @@ def run_cli(selector: str, amp: bool, out_dir: str):
     with conv_selector(selector):
         _build.launches.clear()
         t0 = time.perf_counter()
-        cli_main(cli_argv(amp, out_dir, STEPS))
+        cli_main(cli_argv(amp, out_dir, steps, log_every))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = launched(selector, STEPS, 0, f"CLI under {selector}{' --amp' if amp else ''}")
-    _, steps = step_rows(os.path.join(out_dir, "metrics.jsonl"))
-    if len(steps) != STEPS:
-        raise AssertionError(f"expected {STEPS} logged steps, got {len(steps)}")
+        counts = launched(selector, steps, 0, f"CLI under {selector}{' --amp' if amp else ''}")
+    _, rows = step_rows(os.path.join(out_dir, "metrics.jsonl"))
+    if len(rows) != steps // log_every:
+        raise AssertionError(f"expected {steps // log_every} logged rows, got {len(rows)}")
     fresh = PCRLv23d(device="cuda", seed=1)
     import_pcrlv23d(os.path.join(out_dir, "pcrlv2_luna_pretask_1.0_0.pt"), fresh)
-    step_s = step_times(steps)
-    return {"counts": counts, "wall_s": wall, "step_s": step_s,
-            "step_s_median": statistics.median(step_s[WARMUP:]),
-            "dt_s": [r["DT"] for r in steps],
-            "losses": [r["loss"] for r in steps],
+    step_s = step_times(rows)
+    typical = (statistics.median(step_s[WARMUP:]) if log_every == 1
+               else statistics.mean(step_s[1:3]))
+    return {"counts": counts, "wall_s": wall, "log_every": log_every, "step_s": step_s,
+            "step_s_median": typical,
+            "dt_s": [r["DT"] for r in rows],
+            "losses": [r["loss"] for r in rows],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def sync_free_step() -> dict:
+    """Phase 6: one ``train_step`` at full width on device-resident views,
+    after a warm-up step, under ``torch.cuda.set_sync_debug_mode("error")``:
+    any synchronising call inside the step raises.  The mode is reset after."""
+    import torch
+
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.train.step import TrainState, train_step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    size = CALLS["global"][1]
+    views = {"x1": torch.rand((BATCH,) + size + (1,), generator=gen, device=dev),
+             "x2": torch.rand((BATCH,) + size + (1,), generator=gen, device=dev),
+             "gt": torch.rand((BATCH,) + size + (1,), generator=gen, device=dev),
+             "locals": torch.rand((BATCH, 6) + CALLS["local"][1] + (1,), generator=gen,
+                                  device=dev)}
+    state = TrainState(PCRLv23d(device="cuda", seed=7))
+    levels = [i % 3 for i in range(1 + 2 * 6)]  # 1 + 2·V for V = 6 local views
+    train_step(state, views, levels, 1e-3, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = train_step(state, views, levels, 1e-3, 0)
+        host_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    loss, skipped, step = float(metrics["loss"]), float(metrics["skipped"]), int(state.step)
+    if not (math.isfinite(loss) and skipped == 0.0 and step == 2):
+        raise AssertionError(f"sync-free step: loss {loss}, skipped {skipped}, step {step}")
+    return {"loss": loss, "host_s": host_s, "device_s": time.perf_counter() - t0}
 
 
 def run_disk(tmp: str):
@@ -726,6 +814,7 @@ def profile_cli(argv, step_s: float):
     slab = sorted({m.group(0) for n, _, _ in kernels
                    for m in [re.search(r"conv3d_(packed|im2col)_kernel_\w+(<[^>]*>)?", n)] if m})
     return {"device_ms_per_step": busy_ms, "busy_share": busy_ms / 1e3 / step_s,
+            "launches_per_step": sum(c for _, _, c in kernels) / PROFILED,
             "ms_per_step_by_group": groups, "slab_kernels": slab,
             "top_kernels": [{"name": n[:120], "ms_per_step": us / 1e3 / PROFILED,
                              "launches_per_step": c / PROFILED}
@@ -734,7 +823,8 @@ def profile_cli(argv, step_s: float):
 
 def print_profile(name: str, p: dict):
     print(f"[7] profile {name}: device {p['device_ms_per_step']:.2f} ms/step, "
-          f"busy {p['busy_share']:.1%}; " + ", ".join(
+          f"busy {p['busy_share']:.1%}, {p['launches_per_step']:.1f} kernel launches "
+          f"a step; " + ", ".join(
               f"{k} {v:.2f}" for k, v in sorted(
                   p["ms_per_step_by_group"].items(), key=lambda kv: -kv[1]) if v)
           + (f"; #5/#6 kernels {p['slab_kernels']}" if p["slab_kernels"] else ""),
@@ -781,13 +871,15 @@ def tool_cases(dtype, batch: int):
 
 def check_and_time_tools(results):
     """Phase 9, the checks: every tool kernel against its plain version at
-    every tool shape (the probes with tolerance 0), bf16 at B = 32 (timed:
-    kernel, plain, PyTorch call) and f32 at ``TOOL_F32_BATCH``.  A kernel's
-    summary sums one launch at each of its B = 32 shapes."""
+    every tool shape (the probes with tolerance 0), bf16 at B = 32 and f32
+    at ``TOOL_F32_BATCH``, both timed (kernel, plain, PyTorch call).  A
+    kernel's summary sums one launch at each of its B = 32 shapes; its f32
+    sums at ``TOOL_F32_BATCH`` are under ``f32_*`` keys."""
     import torch
 
-    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")
+    summary = {k: {"max_abs_err": 0.0, "shapes": 0, "f32_shapes": 0,
+                   **{key: 0.0 for key in keys}, **{"f32_" + key: 0.0 for key in keys}}
                for k in TOOL_KERNELS}
     failures = []
     for dtype, batch in ((torch.bfloat16, 32), (torch.float32, TOOL_F32_BATCH)):
@@ -805,16 +897,16 @@ def check_and_time_tools(results):
                    "ok": ok}
             s = summary[case.kernel]
             s["max_abs_err"] = max(s["max_abs_err"], err)
-            if batch == 32:
-                io_dtype = "bfloat16" if case.kernel != "probe_mosaic" else "float32"
-                row.update(ms=time_ms(case.run), plain_ms=time_ms(case.plain, reps=2),
-                           library_ms=time_ms(case.library),
-                           ops_ms=1e3 * case.flops / PEAK_FLOPS[io_dtype],
-                           bytes_ms=1e3 * case.nbytes / HBM_BYTES_S)
-                row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms"):
-                    s[key] += row[key]
-                s["shapes"] += 1
+            io_dtype = dname if case.kernel != "probe_mosaic" else "float32"
+            row.update(ms=time_ms(case.run), plain_ms=time_ms(case.plain, reps=2),
+                       library_ms=time_ms(case.library),
+                       ops_ms=1e3 * case.flops / PEAK_FLOPS[io_dtype],
+                       bytes_ms=1e3 * case.nbytes / HBM_BYTES_S)
+            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+            pre = "" if batch == 32 else "f32_"
+            for key in keys:
+                s[pre + key] += row[key]
+            s[pre + "shapes"] += 1
             results.append(row)
             if not ok:
                 failures.append(f"{dname} B={batch} {case.kernel} {case.label}: "
@@ -911,6 +1003,18 @@ def main() -> int:
                   f"losses {[round(x, 5) for x in r['losses']]}, peak "
                   f"{r['peak_mem_gib']:.2f} GiB", flush=True)
 
+        for name, amp in (("f32_log10", False), ("amp_log10", True)):
+            with tempfile.TemporaryDirectory() as tmp:
+                runs[name] = r = run_cli("pallas", amp, tmp, LONG_STEPS, LOG_EVERY)
+            print(f"[6] CLI PCRL_CONV3D=pallas{' --amp' if amp else ''} --log_every "
+                  f"{LOG_EVERY}, {LONG_STEPS} steps: window step s "
+                  f"{[round(s, 4) for s in r['step_s']]} (mean of windows 2-3: "
+                  f"{r['step_s_median']:.4f}), losses {[round(x, 5) for x in r['losses']]}",
+                  flush=True)
+        sync = sync_free_step()
+        print(f"[6] one train step under set_sync_debug_mode('error'): no sync; loss "
+              f"{sync['loss']:.5f}, host {sync['host_s']:.4f} s to enqueue", flush=True)
+
         profiles = {}
         for name, selector, amp in RUNS:
             with tempfile.TemporaryDirectory() as tmp, conv_selector(selector):
@@ -948,7 +1052,10 @@ def main() -> int:
         for name, s in tool_summary.items():
             print(f"[9] {name}: {s['ms']:.3f} ms over {s['shapes']} shapes (plain "
                   f"{s['plain_ms']:.3f}, PyTorch call {s['library_ms']:.3f}, bound "
-                  f"{s['bound_ms']:.4f}), max abs err {s['max_abs_err']:.3e}", flush=True)
+                  f"{s['bound_ms']:.4f}), max abs err {s['max_abs_err']:.3e}; f32 at B = "
+                  f"{TOOL_F32_BATCH}: {s['f32_ms']:.3f} ms over {s['f32_shapes']} shapes (plain "
+                  f"{s['f32_plain_ms']:.3f}, PyTorch call {s['f32_library_ms']:.3f}, bound "
+                  f"{s['f32_bound_ms']:.4f})", flush=True)
         tools["phase_s"] = time.perf_counter() - t9
         print(f"[9] phase 9 took {tools['phase_s']:.1f} s", flush=True)
 
@@ -961,7 +1068,7 @@ def main() -> int:
                        "spills": spilled, "rows": rows, "odd_rows": odd_rows,
                        "in_channels": in_ch,
                        "model_check": {"f32_max_abs_err": err, "bf16": bf16_model},
-                       "runs": runs, "profiles": profiles,
+                       "runs": runs, "sync_free_step": sync, "profiles": profiles,
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
                        "tool_summary": tool_summary}, fh, indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1

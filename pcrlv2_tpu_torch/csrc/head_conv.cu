@@ -1,236 +1,623 @@
 // Co=1 SAME 3x3x3 conv for Hopper (sm_90a): the deep-supervision mask heads.
-// Forward and a fused backward (dx and the filter gradient in one pass).
-// x is NDHWC (B, D, H, W, Ci); the kernel is flattened to k (Ci, 27) with
-// tap t = 9*td + 3*th + tw; the output and its cotangent are (B, D, H, W).
+// Forward (#3) and a fused backward (#4: dx and the filter gradient in one
+// pass).  x is NDHWC (B, D, H, W, Ci); the kernel is flattened to k (Ci, 27)
+// with tap t = 9*td + 3*th + tw; the output and its cotangent are (B, D, H, W).
+//
+//   out[p]   = sum_t sum_c x[p + off_t - 1, c] * k[c, t]
+//   dx[q, c] = sum_t g(q - off_t + 1) * k[c, t]
+//   dK[c, t] = sum_q x[q, c] * g(q - off_t + 1)
 //
 // Replaces the Pallas TPU kernels pcrlv2_tpu/ops/head_conv.py::_pallas_kernel
 // (forward) and ::_pallas_bwd_kernel (fused backward).
 //
-// Bound on the H100: memory.  Each output voxel is a 27*Ci dot product with
-// one output, 54 FLOPs per input element, well under the card's
-// FLOP-per-byte balance, so the least time is reading x (and writing dx).
-// Design: a block owns a TH x TW tile of one depth plane (128 voxels, one per
-// thread; TW follows W so narrow planes keep every thread busy).  The forward
-// stages the tile's (3, TH+2, TW+2) halo slab of x in shared memory, 16
-// channels at a time, so x is read from device memory about (TH+2)(TW+2)*3 /
-// (TH*TW) times instead of 27 times.  The backward stages the g halo once per
-// tile, gathers each voxel's 27 shifted cotangents into shared memory, then
-// per 16-channel chunk writes dx (coalesced along channels) and adds the
-// tile's x^T.g27 product to a per-block dK accumulator in shared memory.
-// Blocks stride over the tiles in a fixed order; each writes its dK partial,
-// and a second launch adds the partials in a fixed order (no atomics, so dK
-// is the same on every run).
+// Bound on the H100: bytes.  A voxel's output is a 27*Ci dot product with one
+// result, 54 FLOPs per element of x, far under the card's FLOP-per-byte
+// balance, so the least time is reading x once (and, backward, writing dx
+// once).  What the design does about it:
+//
+// Forward.  A block (4 warps) owns a TH x TW tile (128 voxels, TW follows W)
+// of one sample's (H, W) plane plus its 1-voxel halo, R = (TH+2)(TW+2) <=
+// 204 rows (fewer where the plane ends inside the tile: only those are
+// staged and multiplied), and walks the input depth planes of a depth chunk
+// in order: the TPU's grid axis over d becomes this loop.  A 2-stage ring of
+// 16-byte cp.async copies stages (plane, 64 bf16 or 32 f32 channels) slabs
+// of the halo tile; each thread keeps its rows' sources in registers, so a
+// copy is one address and one cp.async, and halos and the planes beyond D
+// come from the zero fill (x needs no padded copy).  Each plane's tap
+// partials P_z[v, t] = sum_c x_z[v, c] * k[c, t] (the TPU's "(hw, Ci) @
+// (Ci, 9) per depth plane", 27 columns padded to 32) are summed over the
+// channel chunks in f32 registers (bf16: mma.sync m16n8k16 fed by ldmatrix;
+// f32: an FMA micro-tile, no TF32) and written once per plane to shared
+// memory.  Each thread then owns one output voxel and keeps three f32
+// accumulators, for the output planes z+1, z and z-1 that plane z feeds
+// (td = 0, 1, 2), adding its 9 (th, tw) neighbours' partials; output plane
+// z-1 is then complete and is written with one rounding.  x crosses device
+// memory once per depth chunk; the halo rows, (TH+2)(TW+2)/(TH*TW) = 1.6x at
+// TW = 32, are shared with the neighbouring tiles through L2.  Grids short
+// of the card split D into chunks (each re-stages its 2 halo planes), as
+// ops/head_conv.py::fwd_split chooses.
+//
+// Backward.  A persistent grid of a fixed size (blocks of 8 warps) walks the
+// per-plane tiles (128 voxels) in a fixed order.  Per tile it stages the g
+// halo (3 planes x (TH+2)(TW+2) values, loaded into registers while the
+// tile before is computed) and builds the shifted-cotangent matrix G27 (128
+// x 32, g's own values, so exact in bf16).  Per channel chunk (64 bf16 or
+// 32 f32), x (no halo) arrives by the cp.async ring; the block adds x^T @
+// G27 to its f32 dK partial in shared memory and computes the dx tile G27 @
+// K^T, written with 16-byte stores.  bf16: both on mma.sync (x^T read by
+// ldmatrix.trans), dx staged through shared memory.  f32: FMA micro-tiles,
+// warps 0-3 on dK and warps 4-7 on dx at the same time.  x and dx cross
+// device memory once.  Each block writes its dK partial; a second launch
+// adds the partials in a fixed order (no atomics: the same dK on every run).
+//
+// Channels: Ci must be a multiple of 8 (bf16) or 4 (f32) for the 16-byte
+// copies and at most MAX_CI; the wrapper zero-pads other counts.
 
-#include "common.cuh"
+#include <climits>
+
+#include "conv_mma.cuh"
 
 namespace {
 
-constexpr int HT = 128;   // threads = voxels per tile
-constexpr int CC = 16;    // channel chunk
-constexpr int SLAB = 204; // max (TH+2)*(TW+2) over the tile shapes below
+constexpr int HT = 128;        // threads = output voxels of a tile
+constexpr int RMAX = 208;      // halo rows (<= 204) rounded up to 16
+constexpr int NMT = RMAX / 16; // m-tiles of the forward's partial product
+constexpr int RP = 228;        // pitch of P's columns (>= RMAX, = 4 mod 32)
+constexpr int MAX_CI = 512;
+constexpr int NST = 2;         // stages of the cp.async rings (3 or 4 measured slower)
+
+// Per dtype: the channels a ring stage holds (CK), the row pitch of a
+// staged slab (LDX) and of G27 and K (LDG), the elements of a 16-byte copy.
+// The pitches put the 8 rows of an ldmatrix (or the 4 rows a warp reads) in
+// distinct banks.  (Half as many channels a stage in a 4-stage ring
+// measured slower in both dtypes.)
+template <typename T> struct Cfg;
+template <> struct Cfg<bf16> {
+  static constexpr int CK = 64, LDX = 72, LDG = 40, VEC = 8;  // 144- and 80-byte rows
+};
+template <> struct Cfg<float> {
+  static constexpr int CK = 32, LDX = 36, LDG = 36, VEC = 4;
+};
 
 // Tile width follows W (32, 16, 8 or 4) and TH = 128 / TW.
 __host__ __device__ inline int tile_w(int W) {
   return W >= 32 ? 32 : W >= 16 ? 16 : W >= 8 ? 8 : 4;
 }
+__host__ __device__ inline int log2i(int v) { return v == 32 ? 5 : v == 16 ? 4 : v == 8 ? 3 : 2; }
+__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-struct Tile { int b, d, h0, w0; };
+// ---------------------------------------------------------------------------
+// #3: forward
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ Tile tile_of(long long idx, int D, int H, int W,
-                                        int TH, int TW) {
-  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
-  Tile t;
-  t.w0 = (int)(idx % tiles_w) * TW; idx /= tiles_w;
-  t.h0 = (int)(idx % tiles_h) * TH; idx /= tiles_h;
-  t.d = (int)(idx % D);
-  t.b = (int)(idx / D);
-  return t;
+template <typename T>
+constexpr size_t fwd_smem_fixed() {
+  return sizeof(T) * NST * RMAX * Cfg<T>::LDX + sizeof(float) * 27 * RP;
+}
+template <typename T>
+size_t fwd_smem(int Ci) {
+  return fwd_smem_fixed<T>() + sizeof(T) * (size_t)round_up(Ci, Cfg<T>::CK) * Cfg<T>::LDG;
 }
 
-// out[b, d, h, w] = sum_{c, t} x[b, d+td-1, h+th-1, w+tw-1, c] * k[c, t]
-template <typename T>
-__global__ void __launch_bounds__(HT)
-head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                T* __restrict__ out, int B, int D, int H, int W, int Ci) {
-  __shared__ float xs[CC][3][SLAB];
-  __shared__ float ks[CC][27];
-  const int TW = tile_w(W), TH = HT / TW;
-  const int SW = TW + 2, SN = (TH + 2) * SW;
-  const Tile tl = tile_of(blockIdx.x, D, H, W, TH, TW);
-  const int tid = threadIdx.x, ly = tid / TW, lx = tid % TW;
-
-  float acc = 0.f;
-  for (int c0 = 0; c0 < Ci; c0 += CC) {
-    for (int e = tid; e < 3 * SN * CC; e += HT) {
-      const int cc = e % CC, p = e / CC;
-      const int pd = p / SN, q = p % SN;
-      const int sd = tl.d + pd - 1, sh = tl.h0 + q / SW - 1, sw = tl.w0 + q % SW - 1;
-      float v = 0.f;
-      if (c0 + cc < Ci && sd >= 0 && sd < D && sh >= 0 && sh < H && sw >= 0 && sw < W)
-        v = to_f(x[((((long long)tl.b * D + sd) * H + sh) * W + sw) * Ci + c0 + cc]);
-      xs[cc][pd][q] = v;
-    }
-    for (int e = tid; e < CC * 27; e += HT) {
-      const int cc = e / 27, t = e % 27;
-      ks[cc][t] = c0 + cc < Ci ? to_f(k[(c0 + cc) * 27 + t]) : 0.f;
-    }
-    __syncthreads();
-    for (int cc = 0; cc < CC; ++cc) {
+// P_z (rows x 32) += slab (rows x CK) @ k[c0 .. c0+CK) (CK x 32), f32 result
+// in per-thread registers: bf16 on mma.sync, warp w owning m-tiles w + 4i.
+__device__ __forceinline__ void fwd_product(float (&acc)[4][1][4][4], const bf16* xs,
+                                            const bf16* ks, int nks, int R, int warp,
+                                            int lane) {
 #pragma unroll
-      for (int td = 0; td < 3; ++td)
-#pragma unroll
-        for (int th = 0; th < 3; ++th)
-#pragma unroll
-          for (int tw = 0; tw < 3; ++tw)
-            acc = fmaf(xs[cc][td][(ly + th) * SW + lx + tw], ks[cc][td * 9 + th * 3 + tw], acc);
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    const int mt = warp + 4 * i;
+    if (mt >= NMT || mt * 16 >= R) continue;
+    for (int kk = 0; kk < nks; ++kk)
+      mma_step<1, 4, false>(acc[i], xs + mt * 16 * Cfg<bf16>::LDX + kk * 16, Cfg<bf16>::LDX,
+                            ks + kk * 16 * Cfg<bf16>::LDG, Cfg<bf16>::LDG, lane);
   }
-  const int h = tl.h0 + ly, w = tl.w0 + lx;
-  if (h < H && w < W)
-    out[(((long long)tl.b * D + tl.d) * H + h) * W + w] = from_f<T>(acc);
 }
 
-// dx[q, c] = sum_t g(q - off_t + 1) * k[c, t]
-// partial[block, c, t] = sum over this block's voxels q of x[q, c] * g(q - off_t + 1)
-template <typename T>
-__global__ void __launch_bounds__(HT)
-head_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                const T* __restrict__ k, T* __restrict__ dx,
-                float* __restrict__ partial, int B, int D, int H, int W, int Ci) {
-  extern __shared__ float smem[];
-  float* dks = smem;                    // [Ci * 27]   this block's dK
-  float* ks = dks + Ci * 27;            // [CC][27]    kernel chunk
-  float* G = ks + CC * 27;              // [HT][27]    shifted cotangents
-  float* gs = G + HT * 27;              // [3][SLAB]   g halo slab
-  float* xs = gs + 3 * SLAB;            // [HT][CC+1]  x chunk
-  const int TW = tile_w(W), TH = HT / TW;
-  const int SW = TW + 2, SN = (TH + 2) * SW;
-  const int tid = threadIdx.x;
-  const long long n_tiles = (long long)B * D * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-
-  for (int e = tid; e < Ci * 27; e += HT) dks[e] = 0.f;
-
-  for (long long ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
-    const Tile tl = tile_of(ti, D, H, W, TH, TW);
-    __syncthreads();  // previous tile is done with gs / G
-    for (int e = tid; e < 3 * SN; e += HT) {
-      const int pd = e / SN, q = e % SN;
-      const int sd = tl.d + pd - 1, sh = tl.h0 + q / SW - 1, sw = tl.w0 + q % SW - 1;
-      float v = 0.f;
-      if (sd >= 0 && sd < D && sh >= 0 && sh < H && sw >= 0 && sw < W)
-        v = to_f(g[(((long long)tl.b * D + sd) * H + sh) * W + sw]);
-      gs[pd * SLAB + q] = v;
-    }
-    __syncthreads();
-    {
-      const int ly = tid / TW, lx = tid % TW;
-      const bool ok = tl.h0 + ly < H && tl.w0 + lx < W;
+// f32: thread (rg = tid / 8, cg = tid % 8) owns rows rg + 16j (j < 13) and
+// columns 4cg .. 4cg+3.  Only the first R rows (the halo tile's rows that
+// the plane reaches) are computed; FULL: all of them.
+template <bool FULL>
+__device__ __forceinline__ void fwd_product(float (&acc)[NMT][4], const float* xs,
+                                            const float* ks, int nk, int R, int tid) {
+  const int rg = tid >> 3, cg = tid & 7;
+  for (int k = 0; k < nk; k += 4) {
+    float4 kv[4];
 #pragma unroll
-      for (int td = 0; td < 3; ++td)
+    for (int u = 0; u < 4; ++u)
+      kv[u] = *reinterpret_cast<const float4*>(ks + (k + u) * Cfg<float>::LDG + 4 * cg);
 #pragma unroll
-        for (int th = 0; th < 3; ++th)
+    for (int j = 0; j < NMT; ++j) {
+      if (!FULL && 16 * j >= R) break;
+      const float4 xv =
+          *reinterpret_cast<const float4*>(xs + (rg + 16 * j) * Cfg<float>::LDX + k);
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-          for (int tw = 0; tw < 3; ++tw)
-            G[tid * 27 + td * 9 + th * 3 + tw] =
-                ok ? gs[(2 - td) * SLAB + (ly + 2 - th) * SW + lx + 2 - tw] : 0.f;
-    }
-    for (int c0 = 0; c0 < Ci; c0 += CC) {
-      __syncthreads();  // G written / previous chunk done with xs, ks
-      for (int e = tid; e < HT * CC; e += HT) {
-        const int cc = e % CC, q = e / CC;
-        const int h = tl.h0 + q / TW, w = tl.w0 + q % TW;
-        float v = 0.f;
-        if (c0 + cc < Ci && h < H && w < W)
-          v = to_f(x[((((long long)tl.b * D + tl.d) * H + h) * W + w) * Ci + c0 + cc]);
-        xs[q * (CC + 1) + cc] = v;
+      for (int u = 0; u < 4; ++u) {
+        acc[j][0] = fmaf(xa[u], kv[u].x, acc[j][0]);
+        acc[j][1] = fmaf(xa[u], kv[u].y, acc[j][1]);
+        acc[j][2] = fmaf(xa[u], kv[u].z, acc[j][2]);
+        acc[j][3] = fmaf(xa[u], kv[u].w, acc[j][3]);
       }
-      for (int e = tid; e < CC * 27; e += HT) {
-        const int cc = e / 27, t = e % 27;
-        ks[e] = c0 + cc < Ci ? to_f(k[(c0 + cc) * 27 + t]) : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void store_p(float* P, const float (&acc)[4][1][4][4], int R,
+                                        int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int mt = warp + 4 * i;
+    if (mt >= NMT) continue;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = mt * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int col = ni * 8 + 2 * (lane & 3) + (e & 1);
+        if (col < 27 && row < R) P[col * RP + row] = acc[i][0][ni][e];
+      }
+  }
+}
+
+__device__ __forceinline__ void store_p(float* P, const float (&acc)[NMT][4], int R, int tid) {
+  const int rg = tid >> 3, cg = tid & 7;
+#pragma unroll
+  for (int j = 0; j < NMT; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int row = rg + 16 * j, col = 4 * cg + u;
+      if (col < 27 && row < R) P[col * RP + row] = acc[j][u];
+    }
+}
+
+template <typename T> struct FwdAcc;
+// The forward's per-plane partials in registers, summed over channel chunks.
+template <> struct FwdAcc<bf16> {
+  float v[4][1][4][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[i][0][j][e] = 0.f;
+  }
+};
+template <> struct FwdAcc<float> {
+  float v[NMT][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < NMT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[i][e] = 0.f;
+  }
+};
+
+// Block = (sample, TH x TW tile, depth chunk of `chunk` output planes).
+template <typename T>
+__global__ void __launch_bounds__(HT, 2)
+head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k, T* __restrict__ out,
+                int B, int D, int H, int W, int Ci, int chunk) {
+  using C = Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);                        // [NST][RMAX][LDX]
+  float* P = reinterpret_cast<float*>(ring + NST * RMAX * C::LDX);  // [27][RP]
+  T* ks = reinterpret_cast<T*>(P + 27 * RP);                         // [CIP][LDG]
+
+  const int TW = tile_w(W), lw = log2i(TW), TH = HT >> lw, SW = TW + 2;
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const int nsplit = (D + chunk - 1) / chunk;
+  long long idx = blockIdx.x;
+  const int sp = (int)(idx % nsplit); idx /= nsplit;
+  const int w0 = (int)(idx % tiles_w) * TW; idx /= tiles_w;
+  const int h0 = (int)(idx % tiles_h) * TH;
+  const int b = (int)(idx / tiles_h);
+  const int z0 = sp * chunk, z1 = min(D, z0 + chunk);
+  const int R = (min(TH, H - h0) + 2) * SW;  // halo rows the plane reaches
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cip = round_up(Ci, C::CK), nc = cip / C::CK;
+  const long long plane = (long long)H * W;
+
+  // this thread's copies of a stage: column part `cpart` of rows
+  // (tid / CPR) + RPI*i; their in-plane offsets (-1: halo, zero fill; -2:
+  // past the R rows) are fixed for the block
+  constexpr int CPR = C::CK / C::VEC, RPI = HT / CPR, NCP = (RMAX + RPI - 1) / RPI;
+  const int cpart = tid % CPR;
+  int roff[NCP];
+#pragma unroll
+  for (int i = 0; i < NCP; ++i) {
+    const int r = tid / CPR + RPI * i;
+    const int hh = h0 + r / SW - 1, ww = w0 + r % SW - 1;
+    roff[i] = r >= R ? -2
+              : ((unsigned)hh < (unsigned)H && (unsigned)ww < (unsigned)W) ? hh * W + ww : -1;
+  }
+  for (int e = tid; e < cip * 32; e += HT) {
+    const int c = e >> 5, t = e & 31;
+    ks[c * C::LDG + t] = (c < Ci && t < 27) ? k[c * 27 + t] : from_f<T>(0.f);
+  }
+  __syncthreads();
+
+  const int n_planes = z1 - z0 + 2, n_stages = n_planes * nc;
+  auto load_stage = [&](int s) {  // one commit group a stage, empty past the last
+    if (s < n_stages) {
+      const int z = z0 - 1 + s / nc, c = (s % nc) * C::CK + cpart * C::VEC;
+      const bool zin = (unsigned)z < (unsigned)D && c < Ci;
+      const T* src = x + ((long long)b * D + (zin ? z : 0)) * plane * Ci + c;
+      T* dst = ring + (s % NST) * RMAX * C::LDX + (tid / CPR) * C::LDX + cpart * C::VEC;
+#pragma unroll
+      for (int i = 0; i < NCP; ++i) {
+        if (roff[i] == -2) break;
+        const bool ok = zin && roff[i] >= 0;
+        cp_async16(dst + RPI * i * C::LDX, ok ? src + (long long)roff[i] * Ci : x, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  FwdAcc<T> acc;
+  float o_m1 = 0.f, o_0 = 0.f, o_p1 = 0.f;  // output planes z-1, z, z+1
+  const int ly = tid >> lw, lx = tid & (TW - 1);
+  const int h = h0 + ly, w = w0 + lx;
+  for (int s = 0; s < NST - 1; ++s) load_stage(s);
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // stage s has landed; everyone is done with stage s-1 and P
+    load_stage(s + NST - 1);
+    const int pi = s / nc, ci = s % nc, c0 = ci * C::CK;
+    if (ci == 0) acc.zero();
+    const T* xs = ring + (s % NST) * RMAX * C::LDX;
+    const int nk = min(C::CK, round_up(Ci - c0, 16));
+    if constexpr (sizeof(T) == 2)
+      fwd_product(acc.v, xs, ks + c0 * C::LDG, nk / 16, R, warp, lane);
+    else if (R > 16 * (NMT - 1))
+      fwd_product<true>(acc.v, xs, ks + c0 * C::LDG, nk, R, tid);
+    else
+      fwd_product<false>(acc.v, xs, ks + c0 * C::LDG, nk, R, tid);
+    if (ci != nc - 1) continue;
+    if constexpr (sizeof(T) == 2) store_p(P, acc.v, R, warp, lane);
+    else store_p(P, acc.v, R, tid);
+    __syncthreads();
+    const int base = ly * SW + lx;
+#pragma unroll
+    for (int th = 0; th < 3; ++th)
+#pragma unroll
+      for (int tw = 0; tw < 3; ++tw) {
+        const int q = base + th * SW + tw, t = th * 3 + tw;
+        o_p1 += P[t * RP + q];
+        o_0 += P[(9 + t) * RP + q];
+        o_m1 += P[(18 + t) * RP + q];
+      }
+    const int zo = z0 - 1 + pi - 1;  // output plane completed by this input plane
+    if (zo >= z0 && h < H && w < W)
+      out[((long long)b * D + zo) * plane + (long long)h * W + w] = from_f<T>(o_m1);
+    o_m1 = o_0;
+    o_0 = o_p1;
+    o_p1 = 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// #4: fused backward
+// ---------------------------------------------------------------------------
+
+constexpr int BT = 256;      // threads of a backward block (8 warps, 128-voxel tiles)
+constexpr int GS = 3 * 204;  // g halo slab (3 planes x at most 204 rows)
+
+template <typename T>
+size_t bwd_smem(int Ci) {
+  using C = Cfg<T>;
+  const int cip = round_up(Ci, C::CK);
+  return sizeof(T) * (NST * HT * C::LDX + HT * C::LDG + 32 * (cip + C::VEC)) +
+         sizeof(float) * (cip * 32 + GS);
+}
+
+// Register budget: bf16 runs 3 blocks an SM; f32 (whose dx micro-tile
+// spills under that budget) 2 (ops/head_conv.py::BWD_BLOCKS_PER_SM).
+template <typename T>
+__global__ void __launch_bounds__(BT, sizeof(T) == 2 ? 3 : 2)
+head_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ k,
+                T* __restrict__ dx, float* __restrict__ partial, int B, int D, int H,
+                int W, int Ci) {
+  using C = Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cip = round_up(Ci, C::CK), nc = cip / C::CK, ldk = cip + C::VEC;
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [NST][HT][LDX] x chunk, then dx
+  T* G = ring + NST * HT * C::LDX;          // [HT][LDG]       G27
+  T* kt = G + HT * C::LDG;                   // [32][ldk]       K^T
+  float* dks = reinterpret_cast<float*>(kt + 32 * ldk);  // [cip][32] dK partial
+  float* gs = dks + cip * 32;                            // [3][SN]   g halo
+
+  const int TW = tile_w(W), lw = log2i(TW), TH = HT >> lw, SW = TW + 2;
+  const int SN = (TH + 2) * SW;
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const int n_tiles = B * D * tiles_h * tiles_w;  // < 2^31 (checked at launch)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long plane = (long long)H * W;
+
+  for (int e = tid; e < 32 * ldk; e += BT) {
+    const int t = e / ldk, c = e % ldk;
+    kt[e] = (c < Ci && t < 27) ? k[c * 27 + t] : from_f<T>(0.f);
+  }
+  for (int e = tid; e < cip * 32; e += BT) dks[e] = 0.f;
+
+  // a tile: its sample, plane, corner, and its corner's voxel index
+  struct Tile { int b, z, h0, w0; long long base; };
+  auto tile_of = [&](int ti) {
+    Tile t;
+    t.w0 = ti % tiles_w * TW; ti /= tiles_w;
+    t.h0 = ti % tiles_h * TH; ti /= tiles_h;
+    t.z = ti % D;
+    t.b = ti / D;
+    t.base = ((long long)t.b * D + t.z) * plane + (long long)t.h0 * W + t.w0;
+    return t;
+  };
+  // stage s: channel chunk s % nc of the block's tile s / nc
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int n_stages = my_tiles * nc;
+  auto stage_tile = [&](int s) { return (int)blockIdx.x + s / nc * (int)gridDim.x; };
+  constexpr int CPR = C::CK / C::VEC;
+  // x (and dx) offset of voxel v of tile t; false outside the plane
+  auto voxel = [&](const Tile& t, int v, long long& off) {
+    const int vy = v >> lw, vx = v & (TW - 1);
+    off = (t.base + vy * W + vx) * Ci;
+    return t.h0 + vy < H && t.w0 + vx < W;
+  };
+  auto load_stage = [&](int s) {  // one commit group a stage, empty past the last
+    if (s < n_stages) {
+      const Tile t = tile_of(stage_tile(s));
+      const int c = s % nc * C::CK + tid % CPR * C::VEC;
+      T* dst = ring + (s % NST) * HT * C::LDX + tid % CPR * C::VEC;
+#pragma unroll
+      for (int v = tid / CPR; v < HT; v += BT / CPR) {
+        long long off;
+        const bool ok = voxel(t, v, off) && c < Ci;
+        cp_async16(dst + v * C::LDX, ok ? x + off + c : x, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the g halo of the block's next tile, loaded into registers a tile ahead
+  constexpr int GPT = (GS + BT - 1) / BT;
+  float gpre[GPT];
+  int gpd[GPT], gqy[GPT], gqx[GPT];  // this thread's halo elements: plane, row, column
+#pragma unroll
+  for (int i = 0; i < GPT; ++i) {
+    const int e = tid + i * BT;
+    gpd[i] = e < 3 * SN ? e / SN : -8;  // -8: none (outside every grid)
+    gqy[i] = e % SN / SW;
+    gqx[i] = e % SN % SW;
+  }
+  auto load_g = [&](int ti) {
+    const Tile t = tile_of(ti);
+#pragma unroll
+    for (int i = 0; i < GPT; ++i) {
+      const int sd = t.z + gpd[i] - 1, sh = t.h0 + gqy[i] - 1, sw = t.w0 + gqx[i] - 1;
+      gpre[i] = in_grid(sd, sh, sw, D, H, W)
+                    ? to_f(g[((long long)t.b * D + sd) * plane + (long long)sh * W + sw])
+                    : 0.f;
+    }
+  };
+
+  if (n_stages > 0) load_g(stage_tile(0));
+  for (int s = 0; s < NST - 1; ++s) load_stage(s);
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // chunk s has landed; everyone is done with chunk s-1 and G27
+    load_stage(s + NST - 1);
+    const Tile t = tile_of(stage_tile(s));
+    const int c0 = s % nc * C::CK;
+    T* xs = ring + (s % NST) * HT * C::LDX;
+    if (c0 == 0) {  // a new tile: its g halo, then G27 (threads 0-127: taps
+                    // 0-15 of voxel tid; threads 128-255: taps 16-31)
+#pragma unroll
+      for (int i = 0; i < GPT; ++i)
+        if (tid + i * BT < 3 * SN) gs[tid + i * BT] = gpre[i];
+      if (s / nc + 1 < my_tiles) load_g(stage_tile(s + nc));
+      __syncthreads();
+      const int v = tid & (HT - 1), ly = v >> lw, lx = v & (TW - 1);
+      const bool ok = t.h0 + ly < H && t.w0 + lx < W;
+      const float* gv = gs + (ly + 2) * SW + lx + 2;  // tap (td, th, tw) at
+                                                      // -(td-2)SN - th SW - tw
+      T* row = G + v * C::LDG;
+      if (tid < HT) {
+#pragma unroll
+        for (int tt = 0; tt < 16; ++tt)
+          row[tt] = from_f<T>(ok ? gv[(2 - tt / 9) * SN - (tt / 3) % 3 * SW - tt % 3] : 0.f);
+      } else {
+#pragma unroll
+        for (int tt = 16; tt < 32; ++tt)
+          row[tt] = from_f<T>(ok && tt < 27
+                                  ? gv[(2 - tt / 9) * SN - (tt / 3) % 3 * SW - tt % 3] : 0.f);
       }
       __syncthreads();
-      for (int e = tid; e < HT * CC; e += HT) {
-        const int cc = e % CC, q = e / CC;
-        const int h = tl.h0 + q / TW, w = tl.w0 + q % TW;
-        if (c0 + cc >= Ci || h >= H || w >= W) continue;
-        float s = 0.f;
+    }
+    if constexpr (sizeof(T) == 2) {
+      // dK partial: (x^T)[c0 .. c0+64) @ G27; warp w on channels
+      // c0 + 16 (w % 4) and taps 16 (w / 4) .. +15
+      {
+        const int wm = warp & 3, wn = warp >> 2;
+        float acc[1][2][4] = {};
 #pragma unroll
-        for (int t = 0; t < 27; ++t) s = fmaf(G[q * 27 + t], ks[cc * 27 + t], s);
-        dx[((((long long)tl.b * D + tl.d) * H + h) * W + w) * Ci + c0 + cc] = from_f<T>(s);
+        for (int kk = 0; kk < HT / 16; ++kk)
+          mma_step<1, 2, true>(acc, xs + kk * 16 * C::LDX + wm * 16, C::LDX,
+                               G + kk * 16 * C::LDG + wn * 16, C::LDG, lane);
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + wm * 16 + (lane >> 2) + (e >> 1) * 8;
+            const int tt = wn * 16 + ni * 8 + 2 * (lane & 3) + (e & 1);
+            dks[c * 32 + tt] += acc[0][ni][e];
+          }
       }
-      for (int e = tid; e < CC * 27; e += HT) {
-        const int cc = e / 27, t = e % 27;
-        if (c0 + cc >= Ci) continue;
-        float s = 0.f;
-        for (int q = 0; q < HT; ++q) s = fmaf(xs[q * (CC + 1) + cc], G[q * 27 + t], s);
-        dks[(c0 + cc) * 27 + t] += s;
+      // dx tile: G27 @ K^T[:, c0 .. c0+64); warp w on voxels 32 (w % 4) ..
+      // +31 and channels c0 + 32 (w / 4) .. +31
+      const int wm = warp & 3, wn = warp >> 2;
+      float dacc[2][4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        mma_step<2, 4, false>(dacc, G + wm * 32 * C::LDG + kk * 16, C::LDG,
+                              kt + kk * 16 * ldk + c0 + wn * 32, ldk, lane);
+      __syncthreads();  // every warp is done reading this x chunk
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int v = wm * 32 + mi * 16 + (lane >> 2) + hf * 8;
+            const int c = wn * 32 + ni * 8 + 2 * (lane & 3);
+            *reinterpret_cast<__nv_bfloat162*>(xs + v * C::LDX + c) =
+                __floats2bfloat162_rn(dacc[mi][ni][2 * hf], dacc[mi][ni][2 * hf + 1]);
+          }
+      __syncthreads();
+      for (int e = tid; e < HT * CPR; e += BT) {
+        const int v = e / CPR, c = c0 + (e % CPR) * C::VEC;
+        long long off;
+        if (voxel(t, v, off) && c < Ci)
+          *reinterpret_cast<uint4*>(dx + off + c) =
+              *reinterpret_cast<const uint4*>(xs + v * C::LDX + (c - c0));
+      }
+    } else if (tid < HT) {
+      // f32, warps 0-3, the dK partial: thread (cg = tid / 8, tg = tid % 8)
+      // owns channels c0 + 2cg, +1 and taps 4tg .. +3, summed over the
+      // tile's 128 voxels
+      const int cg = tid >> 3, tg = tid & 7;
+      float acc[2][4] = {};
+#pragma unroll 4
+      for (int v = 0; v < HT; ++v) {
+        const float2 xv = *reinterpret_cast<const float2*>(xs + v * C::LDX + 2 * cg);
+        const float4 gv = *reinterpret_cast<const float4*>(G + v * C::LDG + 4 * tg);
+        const float xa[2] = {xv.x, xv.y}, ga[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], ga[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dks[(c0 + 2 * cg + i) * 32 + 4 * tg + j] += acc[i][j];
+    } else {
+      // f32, warps 4-7, the dx tile: thread (rg = u / 8, cg = u % 8), u =
+      // tid - 128, owns voxels rg + 16j (j < 8) and channels c0 + 4cg .. +3,
+      // written as float4; taps 4 at a time (tap 27 of G27 and K^T is zero)
+      const int rg = (tid - HT) >> 3, cg = tid & 7;
+      float acc[8][4] = {};
+#pragma unroll
+      for (int t4 = 0; t4 < 28; t4 += 4) {
+        float4 kv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          kv[u] = *reinterpret_cast<const float4*>(kt + (t4 + u) * ldk + c0 + 4 * cg);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 gv = *reinterpret_cast<const float4*>(G + (rg + 16 * j) * C::LDG + t4);
+          const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[j][0] = fmaf(ga[u], kv[u].x, acc[j][0]);
+            acc[j][1] = fmaf(ga[u], kv[u].y, acc[j][1]);
+            acc[j][2] = fmaf(ga[u], kv[u].z, acc[j][2]);
+            acc[j][3] = fmaf(ga[u], kv[u].w, acc[j][3]);
+          }
+        }
+      }
+      const int c = c0 + 4 * cg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        long long off;
+        if (voxel(t, rg + 16 * j, off) && c < Ci)
+          *reinterpret_cast<float4*>(reinterpret_cast<float*>(dx) + off + c) =
+              make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
       }
     }
   }
   __syncthreads();
-  for (int e = tid; e < Ci * 27; e += HT)
-    partial[(long long)blockIdx.x * Ci * 27 + e] = dks[e];
+  for (int e = tid; e < Ci * 27; e += BT)
+    partial[(long long)blockIdx.x * Ci * 27 + e] = dks[(e / 27) * 32 + e % 27];
 }
 
-long long n_tiles(int B, int D, int H, int W) {
-  const int TW = tile_w(W), TH = HT / TW;
-  return (long long)B * D * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+// dk[i] = sum_s partial[s, i] in a fixed order: row group r (of 8) sums
+// s = r, r + 8, ... in increasing s, then the 8 group sums are added in
+// order r = 0 .. 7 (no atomics: the same dK on every run).
+__global__ void __launch_bounds__(256)
+sum_partials_dk_kernel(const float* __restrict__ partial, float* __restrict__ out, int S,
+                       int n) {
+  __shared__ float red[8][33];
+  const int j = threadIdx.x & 31, r = threadIdx.x >> 5, i = blockIdx.x * 32 + j;
+  float acc = 0.f;
+  if (i < n)
+    for (int s = r; s < S; s += 8) acc += partial[(long long)s * n + i];
+  red[r][j] = acc;
+  __syncthreads();
+  if (r == 0 && i < n) {
+    float t = red[0][j];
+#pragma unroll
+    for (int q = 1; q < 8; ++q) t += red[q][j];
+    out[i] = t;
+  }
 }
 
 template <typename T>
-int launch_fwd(const void* x, const void* k, void* out, int B, int D, int H,
-               int W, int Ci, void* stream) {
-  head_fwd_kernel<T><<<(unsigned)n_tiles(B, D, H, W), HT, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)k, (T*)out, B, D, H, W, Ci);
+int launch_fwd(const void* x, const void* k, void* out, int B, int D, int H, int W,
+               int Ci, int chunk, void* stream) {
+  if (Ci % Cfg<T>::VEC || Ci > MAX_CI || chunk < 1) return (int)cudaErrorInvalidValue;
+  const int TW = tile_w(W), TH = HT / TW;
+  const long long grid = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) *
+                         ((D + chunk - 1) / chunk);
+  const size_t smem = fwd_smem<T>(Ci);
+  int err = prepare(head_fwd_kernel<T>, smem);
+  if (err) return err;
+  head_fwd_kernel<T><<<(unsigned)grid, HT, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)k, (T*)out, B, D, H, W, Ci, chunk);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_bwd(const void* x, const void* g, const void* k, void* dx,
-               void* partial, void* dk, int B, int D, int H, int W, int Ci,
-               int grid, void* stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)Ci * 27 + CC * 27 + HT * 27 + 3 * SLAB + HT * (CC + 1));
-  int err = (int)cudaFuncSetAttribute(head_bwd_kernel<T>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem);
+int launch_bwd(const void* x, const void* g, const void* k, void* dx, void* partial,
+               void* dk, int B, int D, int H, int W, int Ci, int grid, void* stream) {
+  const int TW = tile_w(W), TH = HT / TW;
+  const long long tiles = (long long)B * D * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (Ci % Cfg<T>::VEC || Ci > MAX_CI || grid < 1 || tiles > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem<T>(Ci);
+  int err = prepare(head_bwd_kernel<T>, smem);
   if (err) return err;
-  head_bwd_kernel<T><<<(unsigned)grid, HT, smem, (cudaStream_t)stream>>>(
+  head_bwd_kernel<T><<<(unsigned)grid, BT, smem, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)g, (const T*)k, (T*)dx, (float*)partial, B, D, H, W, Ci);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return sum_partials((const float*)partial, (float*)dk, grid, (long long)Ci * 27,
-                      (cudaStream_t)stream);
+  const int n = Ci * 27;
+  sum_partials_dk_kernel<<<(n + 31) / 32, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)partial, (float*)dk, grid, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-long long head_conv_tiles(int B, int D, int H, int W) { return n_tiles(B, D, H, W); }
-
-int head_fwd_f32(const void* x, const void* k, void* out, int B, int D, int H,
-                 int W, int Ci, void* stream) {
-  return launch_fwd<float>(x, k, out, B, D, H, W, Ci, stream);
+int head_fwd_f32(const void* x, const void* k, void* out, int B, int D, int H, int W,
+                 int Ci, int chunk, void* stream) {
+  return launch_fwd<float>(x, k, out, B, D, H, W, Ci, chunk, stream);
 }
 
-int head_fwd_bf16(const void* x, const void* k, void* out, int B, int D, int H,
-                  int W, int Ci, void* stream) {
-  return launch_fwd<__nv_bfloat16>(x, k, out, B, D, H, W, Ci, stream);
+int head_fwd_bf16(const void* x, const void* k, void* out, int B, int D, int H, int W,
+                  int Ci, int chunk, void* stream) {
+  return launch_fwd<bf16>(x, k, out, B, D, H, W, Ci, chunk, stream);
 }
 
-int head_bwd_f32(const void* x, const void* g, const void* k, void* dx,
-                 void* partial, void* dk, int B, int D, int H, int W, int Ci,
-                 int grid, void* stream) {
+int head_bwd_f32(const void* x, const void* g, const void* k, void* dx, void* partial,
+                 void* dk, int B, int D, int H, int W, int Ci, int grid, void* stream) {
   return launch_bwd<float>(x, g, k, dx, partial, dk, B, D, H, W, Ci, grid, stream);
 }
 
-int head_bwd_bf16(const void* x, const void* g, const void* k, void* dx,
-                  void* partial, void* dk, int B, int D, int H, int W, int Ci,
-                  int grid, void* stream) {
-  return launch_bwd<__nv_bfloat16>(x, g, k, dx, partial, dk, B, D, H, W, Ci, grid,
-                                   stream);
+int head_bwd_bf16(const void* x, const void* g, const void* k, void* dx, void* partial,
+                  void* dk, int B, int D, int H, int W, int Ci, int grid, void* stream) {
+  return launch_bwd<bf16>(x, g, k, dx, partial, dk, B, D, H, W, Ci, grid, stream);
 }
 
 }  // extern "C"

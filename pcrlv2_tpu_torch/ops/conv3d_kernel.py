@@ -217,7 +217,7 @@ def check_vectors(tensors, ci: int, co: int) -> None:
 
 
 def _sms(x: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(x.device).multi_processor_count
+    return _build.sm_count(x.device)
 
 
 def conv3d_fwd(x: torch.Tensor, wmat: torch.Tensor,

@@ -16,7 +16,12 @@ bias is added by the caller, outside the kernel (as ``ops/convolution.py``
 does in the JAX package).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises.  Channel counts the kernels' 16-byte copies
+cannot take (not a multiple of 8 in bf16, of 4 in f32) go through
+zero-padded channels (``route``, ``padded_operands``) and the results are
+sliced back; up to ``MAX_CI`` channels fit the kernels' shared memory.  The
+launch geometry (``tile``, ``fwd_split``, ``bwd_grid``) is worked out here,
+where the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -27,23 +32,80 @@ import torch
 import torch.nn.functional as F
 
 from pcrlv2_tpu_torch.ops import _build
-from pcrlv2_tpu_torch.ops.conv3d_kernel import OFFSETS, windows
+from pcrlv2_tpu_torch.ops.conv3d_kernel import OFFSETS, pad_last, windows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
-    "head_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "head_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "head_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
+TILE = 128      # output voxels of a tile (TH × TW), one thread each
+MAX_CI = 512    # channels the kernels' shared memory takes (after padding)
+#: channels a stage of the kernels' cp.async rings holds
+CHUNK = {torch.bfloat16: 64, torch.float32: 32}
+_VEC = {torch.bfloat16: 8, torch.float32: 4}
+#: the forward's depth chunks are at least this deep (a chip sweep of 1, 2
+#: and 4: f32 is fastest with the most blocks, bf16 with 2)
+MIN_PLANES = {torch.bfloat16: 2, torch.float32: 1}
+#: blocks an SM of the backward's persistent grid (a chip sweep of 2 and 3)
+BWD_BLOCKS_PER_SM = {torch.bfloat16: 3, torch.float32: 2}
 
 
 def _fn(kind: str, dtype: torch.dtype):
     return _build.entry("head_conv", kind, dtype, _SIGS[kind])
 
 
-def _n_tiles(b: int, d: int, h: int, w: int) -> int:
-    """The kernels' tile count for a (B, D, H, W) volume."""
-    return _build.entry("head_conv", "head_conv_tiles", None, (_I, _I, _I, _I),
-                        ctypes.c_longlong)(b, d, h, w)
+def tile(w: int) -> tuple[int, int]:
+    """(TH, TW) of the kernels' tiles: TW follows W (32, 16, 8 or 4)."""
+    tw = 32 if w >= 32 else 16 if w >= 16 else 8 if w >= 8 else 4
+    return TILE // tw, tw
+
+
+def n_tiles(b: int, h: int, w: int) -> int:
+    """Tiles of one depth plane of every sample."""
+    th, tw = tile(w)
+    return b * -(-h // th) * -(-w // tw)
+
+
+def fwd_split(b: int, d: int, h: int, w: int, sms: int, dtype: torch.dtype) -> int:
+    """Output planes per block of the forward (#3).  A block walks the depth
+    of one tile; where the tiles alone leave the card short of two blocks an
+    SM, D is split into chunks of at least ``MIN_PLANES`` planes (each
+    re-stages its 2 halo planes), as many as fill one wave."""
+    parts = max(1, min(2 * sms // n_tiles(b, h, w), -(-d // MIN_PLANES[dtype])))
+    return -(-d // parts)
+
+
+def bwd_grid(b: int, d: int, h: int, w: int, sms: int, dtype: torch.dtype) -> int:
+    """Blocks of the backward's (#4) persistent grid: ``BWD_BLOCKS_PER_SM``
+    an SM, at most one a tile.  Fixed for a shape, dtype and card, so dK's
+    partials are added in the same order on every run."""
+    return min(d * n_tiles(b, h, w), BWD_BLOCKS_PER_SM[dtype] * sms)
+
+
+def vector_channels(ci: int, dtype: torch.dtype) -> int:
+    """Ci rounded up to what the 16-byte copies take."""
+    vec = _VEC[dtype]
+    return -(-ci // vec) * vec
+
+
+def route(ci: int, dtype: torch.dtype) -> str:
+    """``"vector"`` (x as it is) or ``"padded"`` (zero-padded channels)."""
+    return "vector" if vector_channels(ci, dtype) == ci else "padded"
+
+
+def padded_operands(x: torch.Tensor, k: torch.Tensor, ci: int):
+    """x (…, Ci₀) and K (Ci₀, 27) zero-padded to ``ci`` channels."""
+    if x.shape[-1] == ci:
+        return x, k
+    return pad_last(x, ci), F.pad(k, (0, 0, 0, ci - k.shape[0]))
+
+
+def _check_aligned(x: torch.Tensor, ci: int) -> None:
+    if ci > MAX_CI:
+        raise ValueError(f"Ci={ci}: the head kernels take at most {MAX_CI} channels")
+    if x.data_ptr() % 16:
+        raise ValueError("the head kernels need a 16-byte aligned x")
 
 
 def flatten_kernel(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -92,9 +154,13 @@ def head_fwd(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"kernel {tuple(k.shape)} does not fit Ci={ci}")
     if _build.check_inputs(x, k) == "cpu":
         return head_fwd_plain(x, k)
+    civ = vector_channels(ci, x.dtype)
+    x, k = padded_operands(x, k, civ)
+    _check_aligned(x, civ)
     out = torch.empty((b, d, h, w), dtype=x.dtype, device=x.device)
+    chunk = fwd_split(b, d, h, w, _build.sm_count(x.device), x.dtype)
     err = _fn("head_fwd", x.dtype)(x.data_ptr(), k.data_ptr(), out.data_ptr(),
-                                   b, d, h, w, ci, _build.stream_ptr(x))
+                                   b, d, h, w, civ, chunk, _build.stream_ptr(x))
     _build.check(err, "head_fwd launch")
     _build.launches["head_fwd"] += 1
     return out
@@ -107,17 +173,21 @@ def head_bwd(x: torch.Tensor, g: torch.Tensor, k: torch.Tensor):
         raise ValueError("head_bwd: g must be x's (B, D, H, W), K (Ci, 27)")
     if _build.check_inputs(x, g, k) == "cpu":
         return head_bwd_plain(x, g, k)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = int(min(_n_tiles(b, d, h, w), 4 * sms))
+    civ = vector_channels(ci, x.dtype)
+    x, k = padded_operands(x, k, civ)
+    _check_aligned(x, civ)
+    grid = bwd_grid(b, d, h, w, _build.sm_count(x.device), x.dtype)
     dx = torch.empty_like(x)
-    partial = torch.empty((grid, ci * 27), dtype=torch.float32, device=x.device)
-    dk = torch.empty((ci, 27), dtype=torch.float32, device=x.device)
+    partial = torch.empty((grid, civ * 27), dtype=torch.float32, device=x.device)
+    dk = torch.empty((civ, 27), dtype=torch.float32, device=x.device)
     err = _fn("head_bwd", x.dtype)(
         x.data_ptr(), g.data_ptr(), k.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dk.data_ptr(), b, d, h, w, ci, grid,
+        partial.data_ptr(), dk.data_ptr(), b, d, h, w, civ, grid,
         _build.stream_ptr(x))
     _build.check(err, "head_bwd launch")
     _build.launches["head_bwd"] += 1
+    if civ != ci:
+        return dx[..., :ci].contiguous(), dk[:ci]
     return dx, dk
 
 

@@ -192,7 +192,8 @@ def load_train_state(state_dir: str, state,
     with torch.no_grad():
         for buf, saved in zip(state.optimizer.buffers, payload["momentum"]):
             buf.copy_(saved)
-    state.step = int(payload["step"])
+    state.step = torch.tensor(int(payload["step"]), dtype=torch.int64,
+                              device=state.step.device)
     if set(payload["generators"]) != set(generators):
         raise ValueError(f"{path}: generators {sorted(payload['generators'])}, "
                          f"expected {sorted(generators)}")

@@ -5,7 +5,8 @@
 Update, with momentum m and weight decay wd, for every parameter:
     g ← grad + wd·p;  buf ← g + m·buf;  p ← p + (−lr)·buf
 The momentum buffers start at zero, so the first step sets ``buf = g``.
-Parameters are updated in place.
+Parameters are updated in place; ``step(lr, skip=bad)`` reverts the update
+on the device where the 0-d flag ``bad`` is true.
 """
 
 from __future__ import annotations
@@ -28,15 +29,29 @@ class SGD:
                         for p in self.params]
 
     @torch.no_grad()
-    def step(self, lr: float) -> None:
-        for p, buf in zip(self.params, self.buffers):
-            # a parameter the loss did not reach has a zero gradient (as in
-            # JAX), and weight decay and momentum still move it
-            g = self.weight_decay * p.float()
-            if p.grad is not None:
-                g = p.grad.float() + g
-            buf.copy_(g + self.momentum * buf)
-            p.copy_(p + (-lr) * buf)
+    def step(self, lr: float, skip: torch.Tensor | None = None) -> None:
+        """One update in place.  With ``skip`` (a 0-d bool tensor) every
+        parameter and momentum buffer keeps its old value where ``skip`` is
+        true: the update is computed in full and then reverted by
+        ``torch.where`` on the device, exactly even when it holds NaN or Inf
+        (the JAX step's ``jnp.where(bad, old, new)``), with no host read."""
+        # a parameter the loss did not reach has a zero gradient (as in
+        # JAX), and weight decay and momentum still move it
+        with_g = [p for p in self.params if p.grad is not None]
+        without = [p for p in self.params if p.grad is None]
+        # g = grad + wd·p (wd·p alone where there is no gradient), in order
+        g_with = iter(torch._foreach_add([p.grad for p in with_g], with_g,
+                                         alpha=self.weight_decay) if with_g else ())
+        g_without = iter(torch._foreach_mul(without, self.weight_decay) if without else ())
+        g = [next(g_with) if p.grad is not None else next(g_without)
+             for p in self.params]
+        torch._foreach_add_(g, self.buffers, alpha=self.momentum)  # g + m·buf
+        new_p = torch._foreach_add(self.params, g, alpha=-lr)
+        if skip is None:
+            skip = torch.zeros((), dtype=torch.bool, device=self.params[0].device)
+        for buf, p, nb, np_ in zip(self.buffers, self.params, g, new_p):
+            torch.where(skip, buf, nb, out=buf)
+            torch.where(skip, p, np_, out=p)
 
 
 def cosine_lr(epoch: int, base_lr: float, total_epochs: int) -> float:

@@ -11,12 +11,17 @@ mask), then for each local view i the levels of its (x1, view i) and
 (x2, view i) terms.  Only the selected mask level gets a gradient, so the
 head backward runs once per step; all nine head forwards still run.
 
-Finite-loss guard: a non-finite loss, or a loss above ``loss_guard`` after
-``guard_warmup_epochs`` (reference ``train_3d.py:140-142``), skips the
-update and restores every piece of state the step touched: BN statistics,
-parameters, momentum and the step counter.  The loss is known before the
-backward pass, so the step checks it on the host and restores the BN
-statistics it had saved; parameters and momentum are then never written.
+Finite-loss guard, as the JAX step has it (``pcrlv2_tpu/train/step.py``):
+the flag ``bad`` — a non-finite loss, or a loss above ``loss_guard`` after
+``guard_warmup_epochs`` (reference ``train_3d.py:140-142``) — is a 0-d bool
+on the device.  The step always runs the backward pass and the SGD update,
+then reverts every piece of state it touched with ``torch.where(bad, old,
+new)``: parameters and momentum inside ``SGD.step(lr, skip=bad)``, where the
+old values are still in hand, and the BN statistics (which the forward
+updates in place) from the copy saved before it.  The step counter, a 0-d
+int64 tensor, advances by ``~bad``.  Nothing in the step reads a value back
+to the host, so the host can queue the next step while the device runs
+this one; the metrics it returns are 0-d tensors.
 
 Evaluation (``eval_step``, port of the JAX trainer's eval function) is the
 same loss, forward only, with BatchNorm on batch statistics as in training;
@@ -26,7 +31,6 @@ it found it.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Sequence
 
 import torch
@@ -43,7 +47,11 @@ class TrainState:
                  weight_decay: float = 1e-4):
         self.model = model
         self.optimizer = SGD(list(model.parameters()), momentum, weight_decay)
-        self.step = 0
+        device = next(model.parameters()).device
+        #: updates applied, a 0-d int64 tensor on the model's device
+        self.step = torch.zeros((), dtype=torch.int64, device=device)
+        #: the BN statistics as they were before the current step
+        self.saved_stats = [buf.clone() for buf in model.buffers()]
 
 
 def flatten_locals(locals_bv: torch.Tensor):
@@ -89,28 +97,26 @@ def train_step(state: TrainState, views: Dict[str, torch.Tensor],
                levels: Sequence[int], lr: float, epoch: int, *,
                loss_guard: float | None = 1000.0, guard_warmup_epochs: int = 10,
                beta_period: float = 240.0) -> Dict:
-    """One training step in place on ``state``; returns the metrics
-    (0-d tensors) plus ``level`` and ``skipped``."""
+    """One training step in place on ``state``; returns the metrics and
+    ``skipped`` as 0-d tensors, and ``level`` (an int from ``levels``)."""
     model = state.model
     model.train()
-    saved_stats = [buf.clone() for buf in model.buffers()]
+    buffers = list(model.buffers())
+    torch._foreach_copy_(state.saved_stats, buffers)
     for p in model.parameters():
         p.grad = None
     loss, metrics = loss_fn(model, views, levels, epoch, beta_period)
-    value = float(loss.detach())
-    bad = not math.isfinite(value) or (
-        loss_guard is not None and value > loss_guard
-        and epoch > guard_warmup_epochs)
-    if bad:
-        with torch.no_grad():
-            for buf, old in zip(model.buffers(), saved_stats):
-                buf.copy_(old)
-    else:
-        loss.backward()
-        state.optimizer.step(lr)
-        state.step += 1
+    bad = ~torch.isfinite(loss.detach())
+    if loss_guard is not None and epoch > guard_warmup_epochs:
+        bad = bad | (loss.detach() > loss_guard)
+    loss.backward()
+    state.optimizer.step(lr, skip=bad)
+    with torch.no_grad():
+        for buf, old in zip(buffers, state.saved_stats):
+            torch.where(bad, old, buf, out=buf)
+        state.step.add_(~bad)
     metrics["level"] = int(levels[0])
-    metrics["skipped"] = float(bad)
+    metrics["skipped"] = bad.float()
     return metrics
 
 

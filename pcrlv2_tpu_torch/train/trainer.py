@@ -122,8 +122,9 @@ class Trainer:
             batch = {k: torch.as_tensor(v).to(self.device) for k, v in raw.items()}
             views = self.aug_fn(self.aug_gen, batch)
             levels = self.draw_levels(views["locals"].shape[1])
-            # the step reads the loss on the host (finite-loss guard), so
-            # the device has finished the step when it returns
+            # the step returns 0-d device tensors and reads nothing back, so
+            # the host runs ahead; the metrics are read (a sync) only when
+            # they are logged, as the JAX trainer does
             metrics = train_step(self.state, views, levels, lr, epoch)
             if (idx + 1) % cfg.log_every == 0:
                 for k in _LOSSES:
@@ -135,7 +136,7 @@ class Trainer:
                 self.logger.log({
                     "epoch": epoch, "iter": idx + 1, "lr": lr,
                     "BT": meters["batch_time"].avg, "DT": meters["data_time"].avg,
-                    "skipped": metrics["skipped"],
+                    "skipped": float(metrics["skipped"]),
                     **{k: meters[k].avg for k in _LOSSES}})
             end = time.time()
         if meters["loss"].count == 0 and idx >= 0:
@@ -186,7 +187,7 @@ def run_training(model: torch.nn.Module, cfg: TrainConfig, loader, aug_fn,
         start = 0
         if cfg.resume:
             start = trainer.restore_state(cfg.resume) + 1
-            print(f"==> resumed at epoch {start} (global step {trainer.state.step})")
+            print(f"==> resumed at epoch {start} (global step {int(trainer.state.step)})")
         for epoch in range(start, cfg.epochs + 1):
             print("==> training...")
             t0 = time.time()

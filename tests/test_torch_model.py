@@ -310,6 +310,61 @@ def test_guard_skips_and_restores_everything(jax_setup):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _snapshot(tstate):
+    return ({k: v.clone() for k, v in tstate.model.state_dict().items()},
+            [b.clone() for b in tstate.optimizer.buffers], tstate.step.clone())
+
+
+@pytest.mark.parametrize("where", ["gt", "x1"])
+def test_guard_reverts_nan_gradients_exactly(where):
+    """A NaN that reaches the gradients (one voxel of ``gt``, or of the
+    input ``x1``): the step still runs backward and SGD on the NaN, then
+    every parameter, momentum buffer, BN statistic and the step counter is
+    bit-identical to before (``torch.where``, not ``old + keep·(new − old)``)."""
+    model = PCRLv23d(policy=PARITY_POLICY, device="cpu", seed=3)
+    tstate = TrainState(model)
+    views = {k: torch.from_numpy(v) for k, v in _tiny_views(1).items()}
+    train_step(tstate, views, [0, 1, 2, 0, 1], 1e-3, 0)  # momentum ≠ 0
+    params, bufs, step = _snapshot(tstate)
+    bad = dict(views, **{where: views[where].clone()})
+    bad[where][0, 3, 4, 2, 0] = float("nan")
+    m = train_step(tstate, bad, [0, 1, 2, 0, 1], 1e-3, 0)
+    assert m["skipped"].item() == 1.0 and not torch.isfinite(m["loss"]).item()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    assert grads and any(not torch.isfinite(g).all() for g in grads)
+    assert tstate.step.dtype == torch.int64 and tstate.step.item() == 1
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, params[k]), k
+    for a, b in zip(tstate.optimizer.buffers, bufs):
+        assert torch.equal(a, b)
+    assert torch.equal(tstate.step, step)
+
+
+def test_train_step_reads_nothing_back(monkeypatch):
+    """``train_step`` returns 0-d tensors (``level`` excepted, an int taken
+    from the host's ``levels``) and calls no ``Tensor.item`` / ``__float__``
+    / ``__int__`` / ``__bool__``: the guard stays on the device."""
+    model = PCRLv23d(policy=PARITY_POLICY, device="cpu", seed=4)
+    tstate = TrainState(model)
+    views = {k: torch.from_numpy(v) for k, v in _tiny_views(2).items()}
+
+    def host_read(*_):
+        raise AssertionError("train_step read a tensor back to the host")
+
+    with monkeypatch.context() as mp:
+        for name in ("item", "__float__", "__int__", "__bool__"):
+            mp.setattr(torch.Tensor, name, host_read)
+        m = train_step(tstate, views, [0, 1, 2, 0, 1], 1e-3, 20)
+    assert set(m) == {"loss", "mg_loss", "cos_loss", "local_loss", "mask_loss",
+                      "level", "skipped"}
+    for k, v in m.items():
+        if k == "level":
+            assert v == 0 and type(v) is int
+        else:
+            assert isinstance(v, torch.Tensor) and v.dim() == 0, k
+    assert m["skipped"].item() == 0.0 and tstate.step.item() == 1
+
+
 def test_pt_round_trip_with_jax(jax_setup, tmp_path):
     _, _, state = jax_setup
     # JAX export → port import (strict)
