@@ -61,7 +61,11 @@ Phases, any failure exits non-zero without the final line:
    modes), #8 and #9 held against their plain versions at every tool shape
    at B = 32 in bf16 and at B = 2 in f32 (TF32 off), the 14 probes of #10
    with tolerance 0, and each kernel, its plain version and the PyTorch call
-   for the same function timed at B = 32 in bf16 and at B = 2 in f32.  No training step launches these
+   for the same function timed at B = 32 in bf16 and at B = 2 in f32; then
+   #7 (both modes) and #9 at ``TOOL_ODD_CONV`` / ``TOOL_ODD_BAND`` (B = 1,
+   Ci of 1, 3 and 17, Co of 1, 5 and 70, W of 7 and 33, planes smaller than
+   a tile, H not dividing it; #9 on random, not banded, bands) in f32 and
+   bf16.  No training step launches these
    kernels, so their ``launches`` in the kernels line are the counts of
    the tool runs.
 
@@ -154,6 +158,15 @@ TOOL_KERNELS = {
     "probe_mosaic": ("pcrlv2_tpu_torch/csrc/probe_mosaic.cu", "tools/probe_mosaic.py:28"),
 }
 TOOL_F32_BATCH = 2  # the f32 pass of phase 9 (the tools' own runs are bf16 at B = 32)
+# (B, D, H, W, Ci, Co) of phase 9's #7 shapes off the sweep and (B, D, H, W,
+# Ci) of its #9 shapes: B = 1, Ci of 1, 3 and 17, Co of 1, 5 and 70, W of 7
+# and 33, planes smaller than a 128-voxel (#7) or 256-row (#9) tile, H not
+# dividing it (H = 300: a plane of two segments, the second ragged; H = 1:
+# #9's 128-row blocks)
+TOOL_ODD_CONV = [(1, 3, 5, 7, 1, 5), (2, 3, 6, 33, 3, 70), (1, 4, 70, 7, 17, 1),
+                 (3, 2, 3, 7, 17, 5), (1, 2, 9, 33, 64, 1)]
+TOOL_ODD_BAND = [(1, 3, 5, 7, 1), (2, 3, 6, 33, 3), (1, 4, 70, 7, 17),
+                 (3, 2, 3, 33, 16), (1, 2, 300, 8, 8), (1, 5, 9, 16, 64), (2, 3, 1, 8, 5)]
 
 # Launches per training step: the 14 3³ convs with Co > 1 run forward 3
 # times (x1, x2, locals) = 42; their filter gradients are 42 and their dx 39
@@ -371,17 +384,17 @@ def head_odd_cases(dtype):
                lambda x=x, g=g, k=k: hc.head_bwd_plain(x, g, k), ("out", "dw"))
 
 
-def check_odd_shapes():
+def check_odd_shapes(case_fns=(odd_cases, head_odd_cases)):
     """Phase 5, the shapes off the main path: every case of ``odd_cases``
-    and ``head_odd_cases`` within ``TOL`` of its plain version, with the output's shape and dtype,
-    in f32 and bf16.  Returns one row per case."""
+    and ``head_odd_cases`` (phase 9: of ``tool_odd_cases``) within ``TOL`` of
+    its plain version, with the output's shape and dtype, in f32 and bf16.
+    Returns one row per case."""
     import torch
 
     rows, failures = [], []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for kernel, label, kfn, pfn, kinds in itertools.chain(odd_cases(dtype),
-                                                              head_odd_cases(dtype)):
+        for kernel, label, kfn, pfn, kinds in itertools.chain(*(f(dtype) for f in case_fns)):
             got, ref = kfn(), pfn()
             torch.cuda.synchronize()
             kinds = kinds if isinstance(kinds, tuple) else (kinds,)
@@ -874,10 +887,12 @@ def check_and_time_tools(results):
     every tool shape (the probes with tolerance 0), bf16 at B = 32 and f32
     at ``TOOL_F32_BATCH``, both timed (kernel, plain, PyTorch call).  A
     kernel's summary sums one launch at each of its B = 32 shapes; its f32
-    sums at ``TOOL_F32_BATCH`` are under ``f32_*`` keys."""
+    sums at ``TOOL_F32_BATCH`` are under ``f32_*`` keys.  ``product_ops_ms``
+    is the formulation's own FLOPs at the peak where they differ from the
+    useful ones (#9's banded product), else ``ops_ms``."""
     import torch
 
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms", "product_ops_ms")
     summary = {k: {"max_abs_err": 0.0, "shapes": 0, "f32_shapes": 0,
                    **{key: 0.0 for key in keys}, **{"f32_" + key: 0.0 for key in keys}}
                for k in TOOL_KERNELS}
@@ -901,7 +916,9 @@ def check_and_time_tools(results):
             row.update(ms=time_ms(case.run), plain_ms=time_ms(case.plain, reps=2),
                        library_ms=time_ms(case.library),
                        ops_ms=1e3 * case.flops / PEAK_FLOPS[io_dtype],
-                       bytes_ms=1e3 * case.nbytes / HBM_BYTES_S)
+                       bytes_ms=1e3 * case.nbytes / HBM_BYTES_S,
+                       product_ops_ms=1e3 * (case.product_flops or case.flops)
+                       / PEAK_FLOPS[io_dtype])
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
             pre = "" if batch == 32 else "f32_"
             for key in keys:
@@ -914,6 +931,38 @@ def check_and_time_tools(results):
         n = sum(r["dtype"] == dname and r["batch"] == batch for r in results)
         print(f"  {dname} B={batch}: {n} tool launches checked", flush=True)
     return summary, failures
+
+
+def tool_odd_cases(dtype):
+    """(kernel, label, kernel_fn, plain_fn, kinds) at ``TOOL_ODD_CONV`` (#7,
+    both modes) and ``TOOL_ODD_BAND`` (#9, on random bands: the kernel
+    computes the full product, so any band must give the plain version's
+    answer)."""
+    import torch
+
+    from pcrlv2_tpu_torch.tools import proto_co1_kernel as co
+    from pcrlv2_tpu_torch.tools import proto_conv as pc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for shp in TOOL_ODD_CONV:
+        ci, co_ = shp[4:]
+        x = torch.randn(shp[:5], generator=gen, device=dev).to(dtype)
+        wm = (torch.randn((27 * ci, co_), generator=gen, device=dev) * 0.1).to(dtype)
+        bias = torch.randn((co_,), generator=gen, device=dev).to(dtype)
+        label = f"{shp[:4]} {ci}->{co_}"
+        for mode in pc.MODES:
+            yield (f"proto_conv{mode}", label,
+                   lambda x=x, wm=wm, bias=bias, mode=mode: pc.proto_conv(x, wm, bias, mode),
+                   lambda x=x, wm=wm, bias=bias, mode=mode: pc.conv_plain(x, wm, bias, mode),
+                   "out")
+    for shp in TOOL_ODD_BAND:
+        w, ci = shp[3:]
+        x = torch.randn(shp, generator=gen, device=dev).to(dtype)
+        bands = (torch.randn((9, (w + 2) * ci, w), generator=gen, device=dev) * 0.1).to(dtype)
+        yield ("proto_co1_band", f"{shp[:4]} ci={ci} ({co.band_route(ci, w, dtype)})",
+               lambda x=x, bands=bands: co.co1_band(x, bands),
+               lambda x=x, bands=bands: co.band_plain(x, bands), "out")
 
 
 def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
@@ -1052,10 +1101,18 @@ def main() -> int:
         for name, s in tool_summary.items():
             print(f"[9] {name}: {s['ms']:.3f} ms over {s['shapes']} shapes (plain "
                   f"{s['plain_ms']:.3f}, PyTorch call {s['library_ms']:.3f}, bound "
-                  f"{s['bound_ms']:.4f}), max abs err {s['max_abs_err']:.3e}; f32 at B = "
+                  f"{s['bound_ms']:.4f}, the formulation's FLOPs {s['product_ops_ms']:.4f}), "
+                  f"max abs err {s['max_abs_err']:.3e}; f32 at B = "
                   f"{TOOL_F32_BATCH}: {s['f32_ms']:.3f} ms over {s['f32_shapes']} shapes (plain "
                   f"{s['f32_plain_ms']:.3f}, PyTorch call {s['f32_library_ms']:.3f}, bound "
-                  f"{s['f32_bound_ms']:.4f})", flush=True)
+                  f"{s['f32_bound_ms']:.4f}, the formulation's FLOPs "
+                  f"{s['f32_product_ops_ms']:.4f})", flush=True)
+        tool_odd_rows = check_odd_shapes((tool_odd_cases,))
+        print(f"[9] tool shapes off the sweep: {len(tool_odd_rows)} launches within tolerance, "
+              f"largest rel err f32 "
+              f"{max(r['rel_err'] for r in tool_odd_rows if r['dtype'] == 'float32'):.2e}, bf16 "
+              f"{max(r['rel_err'] for r in tool_odd_rows if r['dtype'] == 'bfloat16'):.2e}",
+              flush=True)
         tools["phase_s"] = time.perf_counter() - t9
         print(f"[9] phase 9 took {tools['phase_s']:.1f} s", flush=True)
 
@@ -1070,7 +1127,8 @@ def main() -> int:
                        "model_check": {"f32_max_abs_err": err, "bf16": bf16_model},
                        "runs": runs, "sync_free_step": sync, "profiles": profiles,
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
-                       "tool_summary": tool_summary}, fh, indent=1)
+                       "tool_odd_rows": tool_odd_rows, "tool_summary": tool_summary}, fh,
+                      indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1
         traceback.print_exc()
         return 1

@@ -1,8 +1,9 @@
-// Pieces shared by the tensor-core conv kernels (conv3d.cu, #1 and #2;
-// conv3d_packed.cu, #5 and #6): the PTX helpers (16-byte cp.async with
-// zero fill, ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation) and the
-// second pass of a K-split forward, which adds the splits' f32 partials in
-// order with the bias and casts once.
+// Pieces shared by the tensor-core kernels (conv3d.cu, #1 and #2; the slab
+// template slab_conv.cuh of conv3d_packed.cu, #5 and #6, and proto_conv.cu,
+// #7; proto_co1.cu's banded product, #9): the PTX helpers (16-byte cp.async
+// with zero fill, ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation)
+// and the second pass of a K-split forward, which adds the splits' f32
+// partials in order with the bias and casts once.
 #pragma once
 
 #include "common.cuh"

@@ -9,140 +9,123 @@
 // both modes), the prototype the JAX tool measures.
 //
 // Bound on the H100: operations (K = 27*Ci of 27..3456 against Co of 1..128:
-// GFLOPs of work over MBs of operands).  One kernel template on the number
-// of taps staged per pass, TAPS = 27 or 9:
+// GFLOPs of work over MBs of operands).  CONCAT27's body is the im2col
+// kernel's (#5, pallas_conv.py:307), so both modes run on #5's slab template
+// (slab_conv.cuh): 128-voxel x N tiles (N = 32, 64, 128 after Co), K walked
+// in stages of one depth tap and one channel chunk, each stage the im2col
+// slab of one depth plane with its h/w halo in a 2-stage 16-byte cp.async
+// ring plus the 9 weight tiles of that tap, the 9 (th, tw) taps read from
+// the slab at row offsets; bf16 on mma.sync m16n8k16 with f32 accumulation,
+// f32 on an FMA micro-tile (no TF32); K split with the fixed-order sum
+// where the grid is short of the card.  The two modes differ only in the
+// order of the stages:
 //
-//  - a block computes 64 output voxels x 64 output channels (the tile of
-//    conv_tile.cuh: 256 threads, 4x4 float micro-tiles), the 64 voxels a
-//    band of one (b, d) plane or P whole small planes, as conv3d_packed.cu's
-//    im2col kernel places them;
-//  - a pass stages TAPS/9 depth planes of the band (with a one-voxel halo in
-//    h and w) and the TAPS taps' weights for one chunk of input channels,
-//    then walks K = TAPS*chunk out of shared memory.  CONCAT27 takes one
-//    pass per chunk over all three depth planes; CONCAT9 takes three, one
-//    per depth tap, as the TPU kernel's three dots.  The chunk is 8 channels
-//    for 27 taps and 16 for 9, so both stage about the same weights (55 and
-//    37 KB) and fit three to four blocks on an SM.
+//  - CONCAT27 (IM2COL): the channel chunks outer, the three depth taps
+//    inner, as #5 walks its single contraction;
+//  - CONCAT9 (IM2COL_TD): the depth taps outer, all chunks of one tap
+//    before the next, the TPU kernel's three per-tap dots in order.
 //
-// Operands are widened to float in shared memory; f32 FMA accumulation,
-// started from the bias as the TPU kernel starts from it; output cast to
-// the input type.  At Co = 1 63 of each tile's 64 columns are idle.  No
-// tensor cores, no TMA, no double buffering.
+// The bias is added once at the end (or by the split sum), as #5 adds it.
+// Ci or Co the 16-byte copies cannot take (Co = 1, Ci = 1, 3, ...) run on
+// zero-padded channels (ops/conv3d_packed.py::launch); at Co = 1 a 32-wide
+// tile does 32x the useful tensor work.
 
-#include "conv_tile.cuh"
+#include "slab_conv.cuh"
 
 namespace {
 
-template <typename T, int TAPS>
-__global__ void __launch_bounds__(NT)
-proto_conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                  const T* __restrict__ bias, T* __restrict__ out, int B, int D,
-                  int H, int W, int Ci, int Co, int P, int L, int tpp, int R) {
-  constexpr int CK = TAPS == 27 ? 8 : 16;  // input channels per staged chunk
-  constexpr int CKP = CK + 1;           // slab leading dimension (bank pad)
-  constexpr int NPL = TAPS / 9;         // depth planes staged per pass
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int W2 = W + 2;
-  const int DPLANE = P * R * W2;        // staged positions per depth plane
-  float* S = smem;                      // [NPL][P][R][W2][CKP]
-  float* Bs = smem + weight_offset(NPL * DPLANE * CKP);  // [TAPS][CK][BN]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int NP = B * D, HW = H * W;
-  const int n0 = blockIdx.y * BN;
-  int plane0, p0;
-  tile_origin(blockIdx.x, P, L, tpp, &plane0, &p0);
-  const int h0 = p0 / W;  // the first output row of the tile's segments
-
-  int pos[4];
-  bool rok[4];
-  long long obase[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, s = r / L, q = r - s * L;
-    const int plane = plane0 + s, p = p0 + q;
-    rok[i] = s < P && plane < NP && p < HW;
-    const int h = p / W, w = p - h * W;
-    pos[i] = rok[i] ? (s * R + h - h0) * W2 + w : 0;
-    obase[i] = ((long long)plane * HW + p) * Co;
-  }
-  float acc[4][4];
-  init_acc(acc, bias, n0, tx, Co);
-
-  for (int td0 = 0; td0 < 3; td0 += NPL) {
-    for (int c0 = 0; c0 < Ci; c0 += CK) {
-      const int ck = min(CK, Ci - c0);
-      // slab: one warp per (plane, segment, row) line of W2*CK values; line
-      // (j, s, r) holds input row h0 - 1 + r of plane plane0 + s at depth
-      // tap td0 + j
-      for (int line = warp; line < NPL * P * R; line += NWARP) {
-        const int j = line / (P * R), sr = line - j * P * R, s = sr / R;
-        const int plane = plane0 + s, h = h0 - 1 + (sr - s * R);
-        const int b = plane / D, sd = plane - b * D + td0 + j - 1;
-        const bool ok = plane < NP && h >= 0 && h < H && sd >= 0 && sd < D;
-        const long long base = ((((long long)b * D + sd) * H + h) * W) * Ci + c0;
-        float* dst = S + (long long)line * W2 * CKP;
-        for (int e = lane; e < W2 * CK; e += 32) {
-          const int wp = e / CK, c = e % CK, sw = wp - 1;
-          float v = 0.f;
-          if (ok && c < ck && sw >= 0 && sw < W) v = to_f(x[base + (long long)sw * Ci + c]);
-          dst[wp * CKP + c] = v;
-        }
-      }
-      // weights of taps 9*td0 .. 9*td0 + TAPS - 1 into Bs[tap][k][n]
-      for (int e = tid; e < TAPS * CK * BN; e += NT) {
-        const int n = e % BN, k = (e / BN) % CK, tap = e / (BN * CK);
-        float v = 0.f;
-        if (k < ck && n0 + n < Co)
-          v = to_f(wt[((long long)(9 * td0 + tap) * Ci + c0 + k) * Co + n0 + n]);
-        Bs[e] = v;
-      }
-      __syncthreads();
-      // one staged plane at a time: unrolling the three of CONCAT27 takes
-      // 196 registers a thread (one block an SM) against 128
-#pragma unroll 1
-      for (int j = 0; j < NPL; ++j)
-#pragma unroll
-        for (int th = 0; th < 3; ++th)
-#pragma unroll
-          for (int tw = 0; tw < 3; ++tw)
-            fma_tile(acc, S + (j * DPLANE + th * W2 + tw) * CKP, pos, CKP,
-                     Bs + (9 * j + 3 * th + tw) * CK * BN, ck, tx);
-      __syncthreads();
-    }
-  }
-  store_out(out, acc, obase, rok, n0, tx, Co);
+// The kernels: CONCAT27 and CONCAT9, each in bf16 (tensor cores) and f32
+// (FMA), registers for two blocks an SM as conv3d_packed.cu's.
+template <int BN, int WM, int WN>
+__global__ void __launch_bounds__((SLAB_BM / WM) * (BN / WN) * 32, 2)
+proto_conv27_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+                        const bf16* __restrict__ bias, bf16* __restrict__ out,
+                        float* __restrict__ partial, const Geo g) {
+  slab_mma<IM2COL, BN, WM, WN>(x, wt, bias, out, partial, g);
 }
 
-template <typename T, int TAPS>
-int launch(const void* x, const void* wt, const void* bias, void* out, int B, int D,
-           int H, int W, int Ci, int Co, int P, int L, int tpp, int tiles, int R,
-           long long smem, void* stream) {
-  auto kernel = proto_conv_kernel<T, TAPS>;
-  if (int err = prepare(kernel, (size_t)smem)) return err;
-  dim3 grid((unsigned)tiles, (unsigned)((Co + BN - 1) / BN));
-  kernel<<<grid, NT, (size_t)smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)wt, (const T*)bias, (T*)out, B, D, H, W, Ci, Co, P, L,
-      tpp, R);
-  return (int)cudaGetLastError();
+template <int BN, int WM, int WN>
+__global__ void __launch_bounds__((SLAB_BM / WM) * (BN / WN) * 32, 2)
+proto_conv9_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+                       const bf16* __restrict__ bias, bf16* __restrict__ out,
+                       float* __restrict__ partial, const Geo g) {
+  slab_mma<IM2COL_TD, BN, WM, WN>(x, wt, bias, out, partial, g);
+}
+
+template <int BN, int TM, int TN>
+__global__ void __launch_bounds__((SLAB_BM / TM) * (BN / TN), BN == 128 ? 1 : 2)
+proto_conv27_kernel_fma(const float* __restrict__ x, const float* __restrict__ wt,
+                        const float* __restrict__ bias, float* __restrict__ out,
+                        float* __restrict__ partial, const Geo g) {
+  slab_fma<IM2COL, BN, TM, TN>(x, wt, bias, out, partial, g);
+}
+
+template <int BN, int TM, int TN>
+__global__ void __launch_bounds__((SLAB_BM / TM) * (BN / TN), BN == 128 ? 1 : 2)
+proto_conv9_kernel_fma(const float* __restrict__ x, const float* __restrict__ wt,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       float* __restrict__ partial, const Geo g) {
+  slab_fma<IM2COL_TD, BN, TM, TN>(x, wt, bias, out, partial, g);
+}
+
+// The kernel of each tile width N = 128, 64, 32 (ops/conv3d_kernel.py::fwd_tile)
+template <typename T>
+SlabKernel<T> conv27_kernel(int bn) {
+  if constexpr (sizeof(T) == 2)
+    return bn == 128 ? &proto_conv27_kernel_mma<128, 64, 32>
+         : bn == 64  ? &proto_conv27_kernel_mma<64, 32, 32>
+         : bn == 32  ? &proto_conv27_kernel_mma<32, 16, 32> : nullptr;
+  else
+    return bn == 128 ? &proto_conv27_kernel_fma<128, 8, 8>
+         : bn == 64  ? &proto_conv27_kernel_fma<64, 4, 8>
+         : bn == 32  ? &proto_conv27_kernel_fma<32, 4, 4> : nullptr;
+}
+
+template <typename T>
+SlabKernel<T> conv9_kernel(int bn) {
+  if constexpr (sizeof(T) == 2)
+    return bn == 128 ? &proto_conv9_kernel_mma<128, 64, 32>
+         : bn == 64  ? &proto_conv9_kernel_mma<64, 32, 32>
+         : bn == 32  ? &proto_conv9_kernel_mma<32, 16, 32> : nullptr;
+  else
+    return bn == 128 ? &proto_conv9_kernel_fma<128, 8, 8>
+         : bn == 64  ? &proto_conv9_kernel_fma<64, 4, 8>
+         : bn == 32  ? &proto_conv9_kernel_fma<32, 4, 4> : nullptr;
 }
 
 }  // namespace
 
 extern "C" {
 
-#define PROTO_CONV_ENTRY(NAME, T, TAPS)                                             \
-  int NAME(const void* x, const void* wt, const void* bias, void* out, int B, int D, \
-           int H, int W, int Ci, int Co, int P, int L, int tpp, int tiles, int R,    \
-           long long smem, void* stream) {                                           \
-    return launch<T, TAPS>(x, wt, bias, out, B, D, H, W, Ci, Co, P, L, tpp, tiles, R, \
-                           smem, stream);                                            \
-  }
+// Arguments as conv3d_packed.cu's entries (geometry from
+// ops/conv3d_packed.py::tiles and ::slab_rows, the IM2COL slab).
+int proto_conv27_f32(const void* x, const void* wt, const void* bias, void* out, void* partial,
+                     int B, int D, int H, int W, int Ci, int Co, int P, int L, int tpp, int R,
+                     int rows, int tiles, int bn, int S, int per, void* stream) {
+  return launch_slab<float, IM2COL>(conv27_kernel<float>(bn), x, wt, bias, out, partial, B, D, H,
+                                    W, Ci, Co, P, L, tpp, R, rows, tiles, bn, S, per, stream);
+}
 
-PROTO_CONV_ENTRY(proto_conv27_f32, float, 27)
-PROTO_CONV_ENTRY(proto_conv27_bf16, __nv_bfloat16, 27)
-PROTO_CONV_ENTRY(proto_conv9_f32, float, 9)
-PROTO_CONV_ENTRY(proto_conv9_bf16, __nv_bfloat16, 9)
+int proto_conv27_bf16(const void* x, const void* wt, const void* bias, void* out, void* partial,
+                      int B, int D, int H, int W, int Ci, int Co, int P, int L, int tpp, int R,
+                      int rows, int tiles, int bn, int S, int per, void* stream) {
+  return launch_slab<bf16, IM2COL>(conv27_kernel<bf16>(bn), x, wt, bias, out, partial, B, D, H,
+                                   W, Ci, Co, P, L, tpp, R, rows, tiles, bn, S, per, stream);
+}
+
+int proto_conv9_f32(const void* x, const void* wt, const void* bias, void* out, void* partial,
+                    int B, int D, int H, int W, int Ci, int Co, int P, int L, int tpp, int R,
+                    int rows, int tiles, int bn, int S, int per, void* stream) {
+  return launch_slab<float, IM2COL_TD>(conv9_kernel<float>(bn), x, wt, bias, out, partial, B, D,
+                                       H, W, Ci, Co, P, L, tpp, R, rows, tiles, bn, S, per,
+                                       stream);
+}
+
+int proto_conv9_bf16(const void* x, const void* wt, const void* bias, void* out, void* partial,
+                     int B, int D, int H, int W, int Ci, int Co, int P, int L, int tpp, int R,
+                     int rows, int tiles, int bn, int S, int per, void* stream) {
+  return launch_slab<bf16, IM2COL_TD>(conv9_kernel<bf16>(bn), x, wt, bias, out, partial, B, D, H,
+                                      W, Ci, Co, P, L, tpp, R, rows, tiles, bn, S, per, stream);
+}
 
 }  // extern "C"

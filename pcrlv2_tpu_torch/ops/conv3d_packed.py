@@ -19,7 +19,11 @@ the tiling answers it.  Weights come as ``conv3d_kernel.repack_weight``'s
 On the card both kernels take 128-voxel × N-channel tiles (``tiles``,
 N = ``conv3d_kernel.fwd_tile``) and walk K in stages of one depth tap and
 one channel chunk (``stages``), split where the grid is short of the card
-(``split``); ``route`` says which shapes run on zero-padded channels.
+(``split``); ``route`` says which shapes run on zero-padded channels.  The
+kernel template (``csrc/slab_conv.cuh``) also runs the prototype tool's
+CONCAT27 and CONCAT9 convs (#7, ``tools/proto_conv.py``), launched by the
+same ``launch``; ``MODE`` says which slab layout and stage order each
+kernel kind takes.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  It never falls back.
@@ -44,25 +48,27 @@ _STAGES = 2   # depth of the kernels' shared-memory ring
 _SLAB = {torch.bfloat16: (16, 8), torch.float32: (8, 4)}
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
+#: each kernel kind's mode of the template: its slab layout ("packed", the
+#: three tw shifts side by side; "im2col", a depth plane with its h/w halo)
+#: and stage order ("packed" and "im2col_td" depth tap outer, "im2col" the
+#: channel chunks outer)
+MODE = {"conv3d_packed": "packed", "conv3d_im2col": "im2col",
+        "proto_conv27": "im2col", "proto_conv9": "im2col_td"}
 
 
-def _fn(kind: str, dtype: torch.dtype):
-    return _build.entry("conv3d_packed", kind, dtype, _SIG)
-
-
-def tiles(b: int, d: int, h: int, w: int) -> dict:
-    """How the kernels cut the output into blocks of ``_BM`` voxels: planes
-    of at least ``_BM`` voxels in ``tpp`` segments of ``L = _BM`` consecutive
-    positions (``P = 1``); smaller planes ``P = _BM // (h·w)`` whole to a
+def tiles(b: int, d: int, h: int, w: int, bm: int = _BM) -> dict:
+    """How the kernels cut the output into blocks of ``bm`` voxels: planes
+    of at least ``bm`` voxels in ``tpp`` segments of ``L = bm`` consecutive
+    positions (``P = 1``); smaller planes ``P = bm // (h·w)`` whole to a
     block (``L = h·w``).  ``rows`` is the most input rows of one plane an
     im2col block stages, halo included."""
     hw = h * w
-    if hw >= _BM:
-        p, seg, tpp = 1, _BM, math.ceil(hw / _BM)
+    if hw >= bm:
+        p, seg, tpp = 1, bm, math.ceil(hw / bm)
         n = b * d * tpp
-        rows = (w + _BM - 2) // w + 3
+        rows = (w + bm - 2) // w + 3
     else:
-        p, seg, tpp = _BM // hw, hw, 1
+        p, seg, tpp = bm // hw, hw, 1
         n = math.ceil(b * d / p)
         rows = h + 2
     return {"P": p, "L": seg, "tpp": tpp, "tiles": n, "rows": rows}
@@ -72,7 +78,7 @@ def slab_rows(kind: str, geo: dict, w: int) -> int:
     """Slab rows of one stage: packed, ``L + 2W`` plane positions per
     segment (the output rows and a row of halo above and below); im2col,
     ``rows`` input rows of ``W + 2`` positions per plane."""
-    if kind == "conv3d_packed":
+    if MODE[kind] == "packed":
         return geo["P"] * (geo["L"] + 2 * w)
     return geo["P"] * geo["rows"] * (w + 2)
 
@@ -84,17 +90,18 @@ def smem_bytes(kind: str, geo: dict, w: int, bn: int, dtype: torch.dtype) -> int
     bk, pad = _SLAB[dtype]
     es = torch.tensor([], dtype=dtype).element_size()
     rows = slab_rows(kind, geo, w)
-    lds = (3 if kind == "conv3d_packed" else 1) * bk + pad
+    lds = (3 if MODE[kind] == "packed" else 1) * bk + pad
     return es * _STAGES * (rows * lds + 9 * bk * (bn + pad)) + 8 * rows
 
 
 def stages(kind: str, ci: int, dtype: torch.dtype) -> list:
     """The K walk of one block as (td, first channel) per stage, in order:
-    packed, td outer and the Ci chunks inner; im2col, the chunks outer and
-    td inner.  Each stage covers taps 9·td .. 9·td + 8 of its channels."""
+    packed and im2col_td, td outer and the Ci chunks inner; im2col, the
+    chunks outer and td inner.  Each stage covers taps 9·td .. 9·td + 8 of
+    its channels."""
     bk = _SLAB[dtype][0]
     chunks = range(0, ci, bk)
-    if kind == "conv3d_packed":
+    if MODE[kind] != "im2col":
         return [(td, c0) for td in range(3) for c0 in chunks]
     return [(td, c0) for c0 in chunks for td in range(3)]
 
@@ -162,8 +169,12 @@ def conv3d_im2col_plain(x: torch.Tensor, wmat: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _launch(kind: str, plain, x: torch.Tensor, wmat: torch.Tensor,
-            bias: torch.Tensor | None) -> torch.Tensor:
+def launch(kind: str, plain, x: torch.Tensor, wmat: torch.Tensor,
+           bias: torch.Tensor | None, lib: str = "conv3d_packed") -> torch.Tensor:
+    """The template's kernel ``kind`` (the C entry ``<kind>_<dtype>`` of
+    ``csrc/<lib>.cu``, counted under ``kind``) on x (B, D, H, W, Ci), wmat
+    (27, Ci, Co), bias (Co,) or None; ``plain(x, wmat, bias)`` for CPU
+    tensors."""
     b, d, h, w, ci = x.shape
     if wmat.shape[:2] != (27, ci):
         raise ValueError(f"weights {tuple(wmat.shape)} do not fit Ci={ci}")
@@ -187,7 +198,7 @@ def _launch(kind: str, plain, x: torch.Tensor, wmat: torch.Tensor,
     out = torch.empty((b, d, h, w, co_p), dtype=x.dtype, device=x.device)
     partial = (torch.empty((s, b * d * h * w, co_p), dtype=torch.float32, device=x.device)
                if s > 1 else None)
-    err = _fn(kind, x.dtype)(
+    err = _build.entry(lib, kind, x.dtype, _SIG)(
         x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), None if partial is None else partial.data_ptr(),
         b, d, h, w, ci_p, co_p, geo["P"], geo["L"], geo["tpp"], geo["rows"],
@@ -201,13 +212,13 @@ def conv3d_packed_fwd(x: torch.Tensor, wmat: torch.Tensor,
                       bias: torch.Tensor | None) -> torch.Tensor:
     """SAME 3³ conv by the packed kernel: x (B, D, H, W, Ci), wmat
     (27, Ci, Co), bias (Co,) or None, all of one dtype → (B, D, H, W, Co)."""
-    return _launch("conv3d_packed", conv3d_packed_plain, x, wmat, bias)
+    return launch("conv3d_packed", conv3d_packed_plain, x, wmat, bias)
 
 
 def conv3d_im2col_fwd(x: torch.Tensor, wmat: torch.Tensor,
                       bias: torch.Tensor | None) -> torch.Tensor:
     """SAME 3³ conv by the im2col kernel; arguments as ``conv3d_packed_fwd``."""
-    return _launch("conv3d_im2col", conv3d_im2col_plain, x, wmat, bias)
+    return launch("conv3d_im2col", conv3d_im2col_plain, x, wmat, bias)
 
 
 def conv3d_packed(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,9 @@ class Case:
     """One kernel launch shape: the kernel's call, its plain version and the
     one PyTorch call that computes the same function (a yardstick, never
     used by the port), on the same inputs; ``flops`` and ``nbytes`` are the
-    function's useful work (each input read once, each output written once)."""
+    function's useful work (each input read once, each output written once);
+    ``product_flops``, where it differs, the work of the formulation itself
+    (the banded product's, zeros included)."""
 
     kernel: str
     label: str
@@ -26,6 +28,7 @@ class Case:
     library: Callable[[], torch.Tensor]
     flops: float
     nbytes: float
+    product_flops: float | None = None
 
 
 def setup(device) -> torch.device:

@@ -12,7 +12,14 @@ SAME 3³ conv with one output channel and no bias, x (B, D, H, W, Ci), w
 * ``conv3d_co1_band`` (#9, ``_co1_band_kernel``): 9 banded products
   ``plane_td[th:th+H].reshape(H, (W+2)·Ci) @ band[3·td + th]`` by the
   ``co1_band`` kernel, on the bands ``band_mats`` builds outside it.  The
-  product does (W+2)/3 times the conv's useful FLOPs, zeros included.
+  product does (W+2)/3 times the conv's useful FLOPs, zeros included.  On
+  the card it is a GEMM of M = B·D·H rows, N = W, K = 9·(W+2)·Ci: blocks
+  of 256 rows (``band_tiles``) × a 16- or 32-column tile (``band_width``),
+  K in stages of one depth tap and one chunk of the (W+2)·Ci row
+  (``band_stages``), split where the grid is short of the card
+  (``conv3d_packed.split``); Ci or W the 16-byte copies cannot take run on
+  zero-padded channels and band columns (``band_route``,
+  ``band_operands``).
 
 The CUDA source is ``csrc/proto_co1.cu``; its header says what bounds each
 kernel and how the design answers it.  The TPU stencil forms each product
@@ -32,11 +39,14 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 from pcrlv2_tpu_torch.ops import _build
+from pcrlv2_tpu_torch.ops import conv3d_kernel as ck
+from pcrlv2_tpu_torch.ops import conv3d_packed as cp
 from pcrlv2_tpu_torch.ops.conv3d_kernel import OFFSETS
 from pcrlv2_tpu_torch.tools._common import Case, fmt_ms, rel_err, setup, tflops, time_ms
 
@@ -46,9 +56,14 @@ BATCH = 32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGS = {"co1_stencil": (_P, _P, _P) + (_I,) * 6 + (_L, _P),
-         "co1_band": (_P, _P, _P) + (_I,) * 5 + (_P,)}
+         "co1_band": (_P,) * 4 + (_I,) * 15 + (_P,)}
 _STENCIL_VOXELS = 256   # voxels one stencil block covers at most
 _STENCIL_CHUNK = 16     # channels it stages per pass
+#: output rows (b, d, h) of one band block: 256, or 128 where a slab of 256
+#: rows of tiny planes would not fit a block's shared memory (H = 1)
+_BAND_BM = (256, 128)
+#: per dtype: (columns of the (W+2)·Ci row a band stage stages, row pad)
+_BAND = {torch.bfloat16: (64, 8), torch.float32: (32, 4)}
 
 
 def _fn(kind: str, dtype: torch.dtype):
@@ -58,6 +73,63 @@ def _fn(kind: str, dtype: torch.dtype):
 def stencil_rows(h: int, w: int) -> int:
     """Output rows of one plane a stencil block covers (TH·W ≤ 256)."""
     return max(1, min(h, _STENCIL_VOXELS // w))
+
+
+def band_tiles(b: int, d: int, h: int, bn: int, dtype: torch.dtype) -> dict:
+    """How #9 cuts its B·D·H output rows into blocks of ``bm`` (the first of
+    ``_BAND_BM`` whose block fits the card's shared memory at tile width
+    ``bn``), as ``conv3d_packed.tiles`` cuts planes of H × 1 voxels: ``P``
+    whole planes of ``L = H`` rows a block, or segments of ``L = bm`` rows
+    of one plane; ``rows`` is one stage's slab, ``P·(L + 2)`` rows (each
+    segment with a halo row above and below)."""
+    for bm in _BAND_BM:
+        geo = cp.tiles(b, d, h, 1, bm)
+        geo.update(bm=bm, rows=geo["P"] * (geo["L"] + 2))
+        if band_smem(geo, bn, dtype) <= cp.SMEM_LIMIT:
+            break
+    return geo
+
+
+def band_width(n: int) -> int:
+    """Columns of a #9 block's tile: 16 for N ≤ 16, else 32 (a wider N
+    takes ``ceil(N / 32)`` column tiles)."""
+    return 16 if n <= 16 else 32
+
+
+def band_stages(w: int, ci: int, dtype: torch.dtype) -> list:
+    """#9's K walk as (td, first column) per stage, the column chunks outer
+    and td inner (so the three depth planes of a chunk are read close in
+    time, and neighbouring blocks find them in L2): a stage covers bands
+    3·td .. 3·td + 2 at columns k0 .. k0 + BK − 1 of the (W+2)·Ci row."""
+    bk = _BAND[dtype][0]
+    return [(td, k0) for k0 in range(0, (w + 2) * ci, bk) for td in range(3)]
+
+
+def band_route(ci: int, w: int, dtype: torch.dtype) -> str:
+    """``"vector"``: Ci and W are multiples of the 16-byte copy's width (8
+    bf16, 4 f32), so the w-pad edges fall on vector edges and the band rows
+    are aligned; ``"padded"``: any other shape runs the same kernel on
+    channels and band columns zero-padded to those multiples."""
+    return "vector" if ck.vector_channels(ci, w, dtype, stem=False) == (ci, w) else "padded"
+
+
+def band_operands(x: torch.Tensor, bands: torch.Tensor, ci: int, n: int):
+    """x (…, W, Ci₀) and bands (9, (W+2)·Ci₀, W) zero-padded to ``ci``
+    channels (x's and the band rows') and ``n`` band columns."""
+    w, ci0 = x.shape[-2:]
+    if (ci, n) == (ci0, w):
+        return x, bands
+    bands = F.pad(bands.reshape(9, w + 2, ci0, w), (0, n - w, 0, ci - ci0))
+    return ck.pad_last(x, ci), bands.reshape(9, (w + 2) * ci, n)
+
+
+def band_smem(geo: dict, bn: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one #9 block: two stages of the slab (BK
+    columns, padded) and the 3 band tiles (BK × ``bn``, padded), plus the
+    slab's row table."""
+    bk, pad = _BAND[dtype]
+    es = torch.tensor([], dtype=dtype).element_size()
+    return es * 2 * (geo["rows"] * (bk + pad) + 3 * bk * (bn + pad)) + 8 * geo["rows"]
 
 
 def band_mats(w: torch.Tensor, wd: int) -> torch.Tensor:
@@ -148,12 +220,28 @@ def co1_band(x: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
         return band_plain(x, bands)
     if x.numel() == 0:
         raise ValueError(f"co1_band takes a non-empty input, got {tuple(x.shape)}")
-    out = torch.empty((b, d, h, w), dtype=x.dtype, device=x.device)
-    err = _fn("co1_band", x.dtype)(x.data_ptr(), bands.data_ptr(), out.data_ptr(),
-                                   b, d, h, w, ci, _build.stream_ptr(x))
+    ci_p, n = ck.vector_channels(ci, w, x.dtype, stem=False)
+    xk, bk = band_operands(x, bands, ci_p, n)
+    ck.check_vectors((xk, bk), ci_p, n)
+    bn = band_width(n)
+    geo = band_tiles(b, d, h, bn, x.dtype)
+    smem = band_smem(geo, bn, x.dtype)
+    if smem > cp.SMEM_LIMIT:
+        raise ValueError(f"co1_band: H={h} needs {smem} bytes of shared memory per "
+                         f"block, more than the {cp.SMEM_LIMIT} a block has")
+    s, per = cp.split(geo["tiles"] * math.ceil(n / bn), len(band_stages(w, ci_p, x.dtype)),
+                      _build.sm_count(x.device))
+    out = torch.empty((b, d, h, n), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((s, b * d * h, n), dtype=torch.float32, device=x.device)
+               if s > 1 else None)
+    err = _fn("co1_band", x.dtype)(
+        xk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), b, d, h, w, ci_p, n, geo["P"],
+        geo["L"], geo["tpp"], geo["rows"], geo["tiles"], geo["bm"], bn, s, per,
+        _build.stream_ptr(x))
     _build.check(err, "co1_band launch")
     _build.launches["proto_co1_band"] += 1
-    return out
+    return out if n == w else out[..., :w].contiguous()
 
 
 def conv3d_co1_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -181,7 +269,7 @@ def shape_cases(shape, batch: int, dtype: torch.dtype, device, seed: int = 0):
     """Inputs from ``seed`` at one shape (x normal, w 0.1·normal, as the JAX
     tool draws them) and its two cases: the stencil (#8) and the banded
     product (#9) on bands built once.  Both cases' ``flops`` are the conv's
-    useful work."""
+    useful work; the banded case's ``product_flops`` its own."""
     d, h, w, ci = shape
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((batch, d, h, w, ci), generator=gen, device=device).to(dtype)
@@ -200,7 +288,8 @@ def shape_cases(shape, batch: int, dtype: torch.dtype, device, seed: int = 0):
     return [Case("proto_co1", label, lambda: conv3d_co1_fwd(x, wt),
                  lambda: co1_plain(x, w27), cudnn, flops, nbytes),
             Case("proto_co1_band", label, lambda: co1_band(x, bands),
-                 lambda: band_plain(x, bands), cudnn, flops, nbytes)]
+                 lambda: band_plain(x, bands), cudnn, flops, nbytes,
+                 band_flops(batch, shape))]
 
 
 def cases(device, batch: int = BATCH, dtype: torch.dtype = torch.bfloat16, shapes=SHAPES):
@@ -218,7 +307,7 @@ def _sweep(which: int, name: str, device, batch, dtype, shapes) -> list:
         speed = "" if t is None else f" ({t_lib / t:4.2f}x cudnn)"
         extra = ""
         if which == 1:
-            fl = band_flops(batch, shape)
+            fl = case.product_flops
             extra = (f"; useful {case.flops:.3e} FLOPs, banded product {fl:.3e} "
                      f"({fl / case.flops:.1f}x){tflops(fl, t)}")
         print(f"{name} {case.label}: cudnn {fmt_ms(t_lib)} | kernel {fmt_ms(t)}"

@@ -7,9 +7,17 @@ NDHWC, w (3, 3, 3, Ci, Co) DHWIO, bias (Co,), accumulated in f32 from the
 bias and cast to x's dtype, in two formulations of the TPU kernel
 (``_make_kernel``): ``mode="27"``, one contraction of K = 27·Ci over the 27
 tap windows side by side, and ``mode="9"``, three contractions of K = 9·Ci,
-one per depth tap.  The CUDA source is ``csrc/proto_conv.cu``, one kernel
-template on the taps staged per pass; its header says what bounds it and how
-the tiling answers it.
+one per depth tap.  CONCAT27 is the im2col kernel's body (#5), so both modes
+run on #5's slab template (``csrc/slab_conv.cuh``; the kernels and entries
+are in ``csrc/proto_conv.cu``, whose header says what bounds them): 128-voxel
+tiles, K in stages of one depth tap and one channel chunk fed by a
+``cp.async`` ring, bf16 on tensor cores and f32 on an FMA micro-tile.  The
+two modes differ only in the order of the stages: CONCAT27 walks the channel
+chunks outer and the depth taps inner (#5's order), CONCAT9 the depth taps
+outer (the TPU kernel's three dots).  They launch through
+``ops/conv3d_packed.py::launch``, #5's host logic (tiles, K split, the
+zero-padded route for Ci or Co the 16-byte copies cannot take, such as the
+sweep's Co = 1), and count under ``proto_conv27`` / ``proto_conv9``.
 
 ``main()`` sweeps the JAX tool's shapes at B = 32 in bf16 and prints, per
 shape, the cuDNN conv's time (a yardstick only, where the JAX tool prints
@@ -23,13 +31,10 @@ launches its kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-import math
-
 import torch
 import torch.nn.functional as F
 
-from pcrlv2_tpu_torch.ops import _build
+from pcrlv2_tpu_torch.ops import conv3d_packed as cp
 from pcrlv2_tpu_torch.ops.conv3d_kernel import OFFSETS
 from pcrlv2_tpu_torch.tools._common import Case, fmt_ms, rel_err, setup, tflops, time_ms
 
@@ -39,49 +44,9 @@ SHAPES = [(64, 64, 32, 32, 64), (32, 32, 16, 64, 64), (32, 32, 16, 64, 128),
 BATCH = 32
 MODES = ("27", "9")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIG = (_P, _P, _P, _P) + (_I,) * 11 + (_L, _P)
-
-
-_BM = 64   # output rows (voxels) per block (csrc/conv_tile.cuh)
-_BN = 64   # output channels per block
-#: shared memory one block may use on the H100 (227 KB)
-SMEM_LIMIT = 232448
-
-
-def tiles(b: int, d: int, h: int, w: int) -> dict:
-    """How the kernel cuts the output into blocks of 64 voxels: planes of at
-    least 64 voxels in ``tpp`` segments of ``L = 64`` consecutive positions
-    (``P = 1``); smaller planes ``P = 64 // (h·w)`` whole to a block
-    (``L = h·w``).  ``rows`` is the most input rows of one plane a block
-    stages, halo included."""
-    hw = h * w
-    if hw >= _BM:
-        p, seg, tpp = 1, _BM, math.ceil(hw / _BM)
-        n = b * d * tpp
-        rows = (w + _BM - 2) // w + 3
-    else:
-        p, seg, tpp = _BM // hw, hw, 1
-        n = math.ceil(b * d / p)
-        rows = h + 2
-    return {"P": p, "L": seg, "tpp": tpp, "tiles": n, "rows": rows}
-
 
 def taps_per_pass(mode: str) -> int:
     return 27 if mode == "27" else 9
-
-
-def chunk_channels(mode: str) -> int:
-    """Input channels the kernel stages per pass (``csrc/proto_conv.cu``)."""
-    return 8 if mode == "27" else 16
-
-
-def smem_bytes(mode: str, geo: dict, w: int) -> int:
-    """Dynamic shared memory of one block: the staged depth planes (leading
-    dimension padded by one float, rounded up to 16 bytes) and the weights."""
-    taps, ck = taps_per_pass(mode), chunk_channels(mode)
-    slab = taps // 9 * geo["P"] * geo["rows"] * (w + 2) * (ck + 1)
-    return 4 * (-(-slab // 4) * 4) + 4 * taps * ck * _BN
 
 
 # ---------------------------------------------------------------------------
@@ -124,29 +89,17 @@ def proto_conv(x: torch.Tensor, wmat: torch.Tensor, bias: torch.Tensor,
     one dtype → (B, D, H, W, Co) in that dtype; ``mode`` "27" or "9"."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    b, d, h, w, ci = x.shape
+    ci = x.shape[-1]
     if wmat.dim() != 2 or wmat.shape[0] != 27 * ci or bias.shape != wmat.shape[1:]:
         raise ValueError(f"weights {tuple(wmat.shape)} / bias {tuple(bias.shape)} "
                          f"do not fit Ci={ci}")
-    if _build.check_inputs(x, wmat, bias) == "cpu":
-        return conv_plain(x, wmat, bias, mode)
-    if x.numel() == 0:
-        raise ValueError(f"proto_conv takes a non-empty input, got {tuple(x.shape)}")
-    kind = f"proto_conv{mode}"
     co = wmat.shape[1]
-    geo = tiles(b, d, h, w)
-    smem = smem_bytes(mode, geo, w)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{kind}: W={w} needs {smem} bytes of shared memory per "
-                         f"block, more than the {SMEM_LIMIT} a block has")
-    out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
-    err = _build.entry("proto_conv", kind, x.dtype, _SIG)(
-        x.data_ptr(), wmat.data_ptr(), bias.data_ptr(), out.data_ptr(), b, d, h, w,
-        ci, co, geo["P"], geo["L"], geo["tpp"], geo["tiles"], geo["rows"], smem,
-        _build.stream_ptr(x))
-    _build.check(err, f"{kind} launch")
-    _build.launches[kind] += 1
-    return out
+
+    def plain(x, wm, bias):
+        return conv_plain(x, wm.reshape(27 * ci, co), bias, mode)
+
+    return cp.launch(f"proto_conv{mode}", plain, x, wmat.view(27, ci, co), bias,
+                     lib="proto_conv")
 
 
 def conv3d_im2col(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,

@@ -1,11 +1,12 @@
-"""The redesigned packed (#6) and im2col (#5) kernels' geometry and K walk,
-the padded-channel route of every 3³ conv kernel, and ``PCRLv23d`` with
+"""The slab template's kernels' geometry and K walk (packed #6, im2col #5,
+and the td-outer im2col order of the prototype tool's CONCAT9, #7), the
+padded-channel route of every 3³ conv kernel, and ``PCRLv23d`` with
 ``in_channels`` other than 1 against the JAX package.
 
 No card here: the CUDA kernels run only on one (``chip_smoke.py`` holds them
 to their plain versions there).  What the CPU can hold is the arithmetic
 they are built on: ``_emulate`` below walks a block exactly as
-``csrc/conv3d_packed.cu`` does (row table, slab, the 9 tap offsets into it,
+``csrc/slab_conv.cuh`` does (row table, slab, the 9 tap offsets into it,
 stages, K splits, the partials added in split order) and must equal the
 plain versions; the tiling must cover every output voxel and every K index
 once at every launch shape of a training step.
@@ -41,7 +42,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-KINDS = ("conv3d_packed", "conv3d_im2col")
+# the template's three modes: packed, im2col (also CONCAT27) and im2col
+# walked td outer (CONCAT9)
+KINDS = ("conv3d_packed", "conv3d_im2col", "proto_conv9")
 DTYPES = (torch.float32, torch.bfloat16)
 SMS = 132  # the H100's SMs
 
@@ -75,7 +78,7 @@ def _rand(seed, *shape, scale=0.5):
 
 
 # ---------------------------------------------------------------------------
-# the kernels' block walk, in numpy/torch (mirrors csrc/conv3d_packed.cu)
+# the kernels' block walk, in numpy/torch (mirrors csrc/slab_conv.cuh)
 # ---------------------------------------------------------------------------
 
 
@@ -91,7 +94,7 @@ def _table(kind, geo, shape, t):
     hw = h * w
     plane0, p0 = _origin(geo, t)
     j = np.arange(cp.slab_rows(kind, geo, w))
-    if kind == "conv3d_packed":
+    if cp.MODE[kind] == "packed":
         seg = geo["L"] + 2 * w
         s, p = j // seg, p0 - w + j % seg
         ok = (p >= 0) & (p < hw)
@@ -118,7 +121,7 @@ def _out_rows(kind, geo, shape, t):
     s, q = r // geo["L"], r % geo["L"]
     plane, p = plane0 + s, p0 + q
     ok = (s < geo["P"]) & (plane < b * d) & (p < hw)
-    if kind == "conv3d_packed":
+    if cp.MODE[kind] == "packed":
         row = s * (geo["L"] + 2 * w) + q
     else:
         row = (s * geo["rows"] + p // w - p0 // w) * (w + 2) + p % w
@@ -131,7 +134,7 @@ def _slab(kind, tab, xf, shape, td, c0, bk):
     vox, dd, ww = tab
     b, d, h, w = shape
     ci = xf.shape[1]
-    shifts = (-1, 0, 1) if kind == "conv3d_packed" else (0,)
+    shifts = (-1, 0, 1) if cp.MODE[kind] == "packed" else (0,)
     cols = []
     for sh in shifts:
         ok = (vox >= 0) & (dd + td - 1 >= 0) & (dd + td - 1 < d) & (ww + sh >= 0) & (ww + sh < w)
@@ -171,7 +174,7 @@ def _emulate(kind, x, wmat, bias, dtype=torch.float32, splits=None):
                 slab = _slab(kind, tab, xf, shape, td, c0, bk)
                 for tap in range(9):
                     th, tw = divmod(tap, 3)
-                    if kind == "conv3d_packed":
+                    if cp.MODE[kind] == "packed":
                         a = slab[base + th * w, tw * bk:(tw + 1) * bk]
                     else:
                         a = slab[base + th * (w + 2) + tw]
@@ -212,7 +215,7 @@ def test_blocks_cover_every_voxel_and_k_index_once(b, d, h, w, ci, co):
             vh, vw = np.divmod(rem, w)
             for th in range(3):
                 for tw in range(3):
-                    if kind == "conv3d_packed":
+                    if cp.MODE[kind] == "packed":
                         j = rows_t[ok] + th * w
                         src = np.where((tvox[j] >= 0) & (tw_of[j] + tw - 1 >= 0)
                                        & (tw_of[j] + tw - 1 < w), tvox[j] + tw - 1, -1)
@@ -264,7 +267,7 @@ def test_block_walk_equals_plain(kind, shape, dtype, splits):
     x = torch.from_numpy(_rand(30, b, d, h, w, ci))
     wm = torch.from_numpy(_rand(31, 27, ci, co, scale=0.2))
     bias = torch.from_numpy(_rand(32, co))
-    plain = cp.conv3d_packed_plain if kind == "conv3d_packed" else cp.conv3d_im2col_plain
+    plain = cp.conv3d_packed_plain if cp.MODE[kind] == "packed" else cp.conv3d_im2col_plain
     want = plain(x, wm, bias)
     ci_p, co_p = ck.vector_channels(ci, co, dtype, stem=False)
     xp, wp, bp = ck.padded_operands(x, wm, bias, ci_p, co_p)
