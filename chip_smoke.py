@@ -62,12 +62,15 @@ Phases, any failure exits non-zero without the final line:
    at B = 32 in bf16 and at B = 2 in f32 (TF32 off), the 14 probes of #10
    with tolerance 0, and each kernel, its plain version and the PyTorch call
    for the same function timed at B = 32 in bf16 and at B = 2 in f32; then
-   #7 (both modes) and #9 at ``TOOL_ODD_CONV`` / ``TOOL_ODD_BAND`` (B = 1,
-   Ci of 1, 3 and 17, Co of 1, 5 and 70, W of 7 and 33, planes smaller than
-   a tile, H not dividing it; #9 on random, not banded, bands) in f32 and
-   bf16.  No training step launches these
-   kernels, so their ``launches`` in the kernels line are the counts of
-   the tool runs.
+   #7 (both modes), #8 and #9 at ``TOOL_ODD_CONV`` / ``TOOL_ODD_STENCIL`` /
+   ``TOOL_ODD_BAND`` (B of 1-3, Ci of 1, 3, 17 and 1100, Co of 1, 5 and 70,
+   W of 1, 7, 33 and 300, H = 1, D < 3, planes smaller than a tile, H not
+   dividing it; #9 on random, not banded, bands) in f32 and bf16; then
+   #10's launch path (``probe_times``): per probe, the host-inclusive time
+   per call and the device time of ``run``, of the probe's PyTorch
+   expression and of ``probe_mosaic.floor`` (the same path to an empty
+   kernel).  No training step launches these kernels, so their
+   ``launches`` in the kernels line are the counts of the tool runs.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -167,6 +170,12 @@ TOOL_ODD_CONV = [(1, 3, 5, 7, 1, 5), (2, 3, 6, 33, 3, 70), (1, 4, 70, 7, 17, 1),
                  (3, 2, 3, 7, 17, 5), (1, 2, 9, 33, 64, 1)]
 TOOL_ODD_BAND = [(1, 3, 5, 7, 1), (2, 3, 6, 33, 3), (1, 4, 70, 7, 17),
                  (3, 2, 3, 33, 16), (1, 2, 300, 8, 8), (1, 5, 9, 16, 64), (2, 3, 1, 8, 5)]
+# (B, D, H, W, Ci) of phase 9's #8 shapes: W > 256 (W = 300: ten tiles a
+# row), Ci of 1, 3 and 17 (the padded route), Ci = 1100 > MAX_CI (three
+# channel slices), D < 3 with H = W = 1, planes smaller than a 128-voxel tile
+TOOL_ODD_STENCIL = [(1, 2, 3, 300, 8), (2, 3, 5, 6, 1), (1, 2, 7, 9, 3), (2, 4, 6, 5, 17),
+                    (1, 3, 5, 7, 1100), (2, 2, 1, 1, 16), (3, 4, 3, 9, 64)]
+PROBE_REPS = 20  # calls a probe's device time is averaged over (phase 9)
 
 # Launches per training step: the 14 3³ convs with Co > 1 run forward 3
 # times (x1, x2, locals) = 42; their filter gradients are 42 and their dx 39
@@ -935,11 +944,12 @@ def check_and_time_tools(results):
 
 def tool_odd_cases(dtype):
     """(kernel, label, kernel_fn, plain_fn, kinds) at ``TOOL_ODD_CONV`` (#7,
-    both modes) and ``TOOL_ODD_BAND`` (#9, on random bands: the kernel
-    computes the full product, so any band must give the plain version's
-    answer)."""
+    both modes), ``TOOL_ODD_STENCIL`` (#8) and ``TOOL_ODD_BAND`` (#9, on
+    random bands: the kernel computes the full product, so any band must
+    give the plain version's answer)."""
     import torch
 
+    from pcrlv2_tpu_torch.ops import head_conv as hc
     from pcrlv2_tpu_torch.tools import proto_co1_kernel as co
     from pcrlv2_tpu_torch.tools import proto_conv as pc
 
@@ -956,6 +966,13 @@ def tool_odd_cases(dtype):
                    lambda x=x, wm=wm, bias=bias, mode=mode: pc.proto_conv(x, wm, bias, mode),
                    lambda x=x, wm=wm, bias=bias, mode=mode: pc.conv_plain(x, wm, bias, mode),
                    "out")
+    for shp in TOOL_ODD_STENCIL:
+        ci = shp[4]
+        x = torch.randn(shp, generator=gen, device=dev).to(dtype)
+        w27 = (torch.randn((27, ci), generator=gen, device=dev) * 0.1).to(dtype)
+        yield ("proto_co1", f"{shp[:4]} ci={ci} ({hc.route(ci, dtype)})",
+               lambda x=x, w27=w27: co.co1_stencil(x, w27),
+               lambda x=x, w27=w27: co.co1_plain(x, w27), "out")
     for shp in TOOL_ODD_BAND:
         w, ci = shp[3:]
         x = torch.randn(shp, generator=gen, device=dev).to(dtype)
@@ -965,18 +982,60 @@ def tool_odd_cases(dtype):
                lambda x=x, bands=bands: co.band_plain(x, bands), "out")
 
 
+def device_ms(fn, reps: int = PROBE_REPS) -> float:
+    """Device-kernel time per call of ``fn`` under ``torch.profiler``, over
+    ``reps`` calls after one warm-up call; 0 for a call that launches no
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_kernel_us(e) for e in prof.key_averages()) / 1e3 / reps
+
+
+def probe_times() -> list:
+    """Phase 9, #10's launch path: per probe, the host-inclusive time per
+    call (``time_ms``: 5 back-to-back calls between two CUDA events) and
+    the device time per call (``device_ms``) of ``probe_mosaic.run``, of the
+    probe's PyTorch expression (``plain``) and of ``probe_mosaic.floor``
+    (``run``'s path to an empty kernel: the least a call of it costs)."""
+    import torch
+
+    from pcrlv2_tpu_torch.tools import probe_mosaic as pm
+
+    rows = []
+    for name, out_shape, xs in pm.probes(torch.device("cuda")):
+        row = {"probe": name}
+        for what, fn in (("kernel", lambda: pm.run(name, out_shape, *xs)),
+                         ("expr", lambda: pm.plain(name, *xs)),
+                         ("floor", lambda: pm.floor(name, out_shape, *xs))):
+            row[what + "_ms"] = time_ms(fn)
+            row[what + "_device_ms"] = device_ms(fn)
+        rows.append(row)
+    return rows
+
+
 def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
     """One kernel of the kernels line, from its summary ``s``.  ``bf16_ms``,
     ``bf16_bound_ms`` and ``bf16_library_ms`` are its bf16 sums; the tools'
-    kernels are timed in bf16 only (B = 32), so theirs repeat ``ms``,
-    ``bound_ms`` and ``library_ms``."""
+    kernels are timed in bf16 at B = 32 (their f32 sums are in
+    ``chip_smoke_kernels.json``), so theirs repeat ``ms``, ``bound_ms`` and
+    ``library_ms``.  #10 adds the device times and its launch path's floor
+    (``probe_times``)."""
     pre = "bf16_" if "bf16_ms" in s else ""
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
             "library_ms": s["library_ms"], "bf16_ms": s[pre + "ms"],
-            "bf16_bound_ms": s[pre + "bound_ms"], "bf16_library_ms": s[pre + "library_ms"]}
+            "bf16_bound_ms": s[pre + "bound_ms"], "bf16_library_ms": s[pre + "library_ms"],
+            **{k: s[k] for k in ("device_ms", "floor_ms", "floor_device_ms",
+                                 "library_device_ms") if k in s}}
 
 
 def main() -> int:
@@ -1113,6 +1172,22 @@ def main() -> int:
               f"{max(r['rel_err'] for r in tool_odd_rows if r['dtype'] == 'float32'):.2e}, bf16 "
               f"{max(r['rel_err'] for r in tool_odd_rows if r['dtype'] == 'bfloat16'):.2e}",
               flush=True)
+        probes = probe_times()
+        sums = {k: sum(r[k] for r in probes) for k in probes[0] if k != "probe"}
+        print(f"[9] #10's launch path, summed over the {len(probes)} probes (ms per call, "
+              f"host-inclusive / device): run {sums['kernel_ms']:.4f} / "
+              f"{sums['kernel_device_ms']:.4f}, PyTorch expressions {sums['expr_ms']:.4f} / "
+              f"{sums['expr_device_ms']:.4f}, floor {sums['floor_ms']:.4f} / "
+              f"{sums['floor_device_ms']:.4f}", flush=True)
+        for r in probes:
+            print(f"    {r['probe']}: run {r['kernel_ms']:.4f} / {r['kernel_device_ms']:.4f}, "
+                  f"expression {r['expr_ms']:.4f} / {r['expr_device_ms']:.4f}, floor "
+                  f"{r['floor_ms']:.4f} / {r['floor_device_ms']:.4f}")
+        tools["probe_times"] = probes
+        tool_summary["probe_mosaic"].update(
+            device_ms=sums["kernel_device_ms"], floor_ms=sums["floor_ms"],
+            floor_device_ms=sums["floor_device_ms"],
+            library_device_ms=sums["expr_device_ms"])
         tools["phase_s"] = time.perf_counter() - t9
         print(f"[9] phase 9 took {tools['phase_s']:.1f} s", flush=True)
 

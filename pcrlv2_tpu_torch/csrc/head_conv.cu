@@ -35,7 +35,8 @@
 // memory once per depth chunk; the halo rows, (TH+2)(TW+2)/(TH*TW) = 1.6x at
 // TW = 32, are shared with the neighbouring tiles through L2.  Grids short
 // of the card split D into chunks (each re-stages its 2 halo planes), as
-// ops/head_conv.py::fwd_split chooses.
+// ops/head_conv.py::fwd_split chooses.  The forward's device code is the block
+// template of head_fwd.cuh, which proto_co1.cu's stencil (#8) also runs.
 //
 // Backward.  A persistent grid of a fixed size (blocks of 8 warps) walks the
 // per-plane tiles (128 voxels) in a fixed order.  Per tile it stages the g
@@ -55,246 +56,21 @@
 
 #include <climits>
 
-#include "conv_mma.cuh"
+#include "head_fwd.cuh"
 
 namespace {
 
-constexpr int HT = 128;        // threads = output voxels of a tile
-constexpr int RMAX = 208;      // halo rows (<= 204) rounded up to 16
-constexpr int NMT = RMAX / 16; // m-tiles of the forward's partial product
-constexpr int RP = 228;        // pitch of P's columns (>= RMAX, = 4 mod 32)
-constexpr int MAX_CI = 512;
-constexpr int NST = 2;         // stages of the cp.async rings (3 or 4 measured slower)
-
-// Per dtype: the channels a ring stage holds (CK), the row pitch of a
-// staged slab (LDX) and of G27 and K (LDG), the elements of a 16-byte copy.
-// The pitches put the 8 rows of an ldmatrix (or the 4 rows a warp reads) in
-// distinct banks.  (Half as many channels a stage in a 4-stage ring
-// measured slower in both dtypes.)
-template <typename T> struct Cfg;
-template <> struct Cfg<bf16> {
-  static constexpr int CK = 64, LDX = 72, LDG = 40, VEC = 8;  // 144- and 80-byte rows
-};
-template <> struct Cfg<float> {
-  static constexpr int CK = 32, LDX = 36, LDG = 36, VEC = 4;
-};
-
-// Tile width follows W (32, 16, 8 or 4) and TH = 128 / TW.
-__host__ __device__ inline int tile_w(int W) {
-  return W >= 32 ? 32 : W >= 16 ? 16 : W >= 8 ? 8 : 4;
-}
-__host__ __device__ inline int log2i(int v) { return v == 32 ? 5 : v == 16 ? 4 : v == 8 ? 3 : 2; }
-__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
 // ---------------------------------------------------------------------------
-// #3: forward
+// #3: forward, on head_fwd.cuh's block template
 // ---------------------------------------------------------------------------
-
-template <typename T>
-constexpr size_t fwd_smem_fixed() {
-  return sizeof(T) * NST * RMAX * Cfg<T>::LDX + sizeof(float) * 27 * RP;
-}
-template <typename T>
-size_t fwd_smem(int Ci) {
-  return fwd_smem_fixed<T>() + sizeof(T) * (size_t)round_up(Ci, Cfg<T>::CK) * Cfg<T>::LDG;
-}
-
-// P_z (rows x 32) += slab (rows x CK) @ k[c0 .. c0+CK) (CK x 32), f32 result
-// in per-thread registers: bf16 on mma.sync, warp w owning m-tiles w + 4i.
-__device__ __forceinline__ void fwd_product(float (&acc)[4][1][4][4], const bf16* xs,
-                                            const bf16* ks, int nks, int R, int warp,
-                                            int lane) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int mt = warp + 4 * i;
-    if (mt >= NMT || mt * 16 >= R) continue;
-    for (int kk = 0; kk < nks; ++kk)
-      mma_step<1, 4, false>(acc[i], xs + mt * 16 * Cfg<bf16>::LDX + kk * 16, Cfg<bf16>::LDX,
-                            ks + kk * 16 * Cfg<bf16>::LDG, Cfg<bf16>::LDG, lane);
-  }
-}
-
-// f32: thread (rg = tid / 8, cg = tid % 8) owns rows rg + 16j (j < 13) and
-// columns 4cg .. 4cg+3.  Only the first R rows (the halo tile's rows that
-// the plane reaches) are computed; FULL: all of them.
-template <bool FULL>
-__device__ __forceinline__ void fwd_product(float (&acc)[NMT][4], const float* xs,
-                                            const float* ks, int nk, int R, int tid) {
-  const int rg = tid >> 3, cg = tid & 7;
-  for (int k = 0; k < nk; k += 4) {
-    float4 kv[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      kv[u] = *reinterpret_cast<const float4*>(ks + (k + u) * Cfg<float>::LDG + 4 * cg);
-#pragma unroll
-    for (int j = 0; j < NMT; ++j) {
-      if (!FULL && 16 * j >= R) break;
-      const float4 xv =
-          *reinterpret_cast<const float4*>(xs + (rg + 16 * j) * Cfg<float>::LDX + k);
-      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        acc[j][0] = fmaf(xa[u], kv[u].x, acc[j][0]);
-        acc[j][1] = fmaf(xa[u], kv[u].y, acc[j][1]);
-        acc[j][2] = fmaf(xa[u], kv[u].z, acc[j][2]);
-        acc[j][3] = fmaf(xa[u], kv[u].w, acc[j][3]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void store_p(float* P, const float (&acc)[4][1][4][4], int R,
-                                        int warp, int lane) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int mt = warp + 4 * i;
-    if (mt >= NMT) continue;
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int col = ni * 8 + 2 * (lane & 3) + (e & 1);
-        if (col < 27 && row < R) P[col * RP + row] = acc[i][0][ni][e];
-      }
-  }
-}
-
-__device__ __forceinline__ void store_p(float* P, const float (&acc)[NMT][4], int R, int tid) {
-  const int rg = tid >> 3, cg = tid & 7;
-#pragma unroll
-  for (int j = 0; j < NMT; ++j)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int row = rg + 16 * j, col = 4 * cg + u;
-      if (col < 27 && row < R) P[col * RP + row] = acc[j][u];
-    }
-}
-
-template <typename T> struct FwdAcc;
-// The forward's per-plane partials in registers, summed over channel chunks.
-template <> struct FwdAcc<bf16> {
-  float v[4][1][4][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[i][0][j][e] = 0.f;
-  }
-};
-template <> struct FwdAcc<float> {
-  float v[NMT][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < NMT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[i][e] = 0.f;
-  }
-};
 
 // Block = (sample, TH x TW tile, depth chunk of `chunk` output planes).
 template <typename T>
 __global__ void __launch_bounds__(HT, 2)
 head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k, T* __restrict__ out,
                 int B, int D, int H, int W, int Ci, int chunk) {
-  using C = Cfg<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);                        // [NST][RMAX][LDX]
-  float* P = reinterpret_cast<float*>(ring + NST * RMAX * C::LDX);  // [27][RP]
-  T* ks = reinterpret_cast<T*>(P + 27 * RP);                         // [CIP][LDG]
-
-  const int TW = tile_w(W), lw = log2i(TW), TH = HT >> lw, SW = TW + 2;
-  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
-  const int nsplit = (D + chunk - 1) / chunk;
-  long long idx = blockIdx.x;
-  const int sp = (int)(idx % nsplit); idx /= nsplit;
-  const int w0 = (int)(idx % tiles_w) * TW; idx /= tiles_w;
-  const int h0 = (int)(idx % tiles_h) * TH;
-  const int b = (int)(idx / tiles_h);
-  const int z0 = sp * chunk, z1 = min(D, z0 + chunk);
-  const int R = (min(TH, H - h0) + 2) * SW;  // halo rows the plane reaches
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int cip = round_up(Ci, C::CK), nc = cip / C::CK;
-  const long long plane = (long long)H * W;
-
-  // this thread's copies of a stage: column part `cpart` of rows
-  // (tid / CPR) + RPI*i; their in-plane offsets (-1: halo, zero fill; -2:
-  // past the R rows) are fixed for the block
-  constexpr int CPR = C::CK / C::VEC, RPI = HT / CPR, NCP = (RMAX + RPI - 1) / RPI;
-  const int cpart = tid % CPR;
-  int roff[NCP];
-#pragma unroll
-  for (int i = 0; i < NCP; ++i) {
-    const int r = tid / CPR + RPI * i;
-    const int hh = h0 + r / SW - 1, ww = w0 + r % SW - 1;
-    roff[i] = r >= R ? -2
-              : ((unsigned)hh < (unsigned)H && (unsigned)ww < (unsigned)W) ? hh * W + ww : -1;
-  }
-  for (int e = tid; e < cip * 32; e += HT) {
-    const int c = e >> 5, t = e & 31;
-    ks[c * C::LDG + t] = (c < Ci && t < 27) ? k[c * 27 + t] : from_f<T>(0.f);
-  }
-  __syncthreads();
-
-  const int n_planes = z1 - z0 + 2, n_stages = n_planes * nc;
-  auto load_stage = [&](int s) {  // one commit group a stage, empty past the last
-    if (s < n_stages) {
-      const int z = z0 - 1 + s / nc, c = (s % nc) * C::CK + cpart * C::VEC;
-      const bool zin = (unsigned)z < (unsigned)D && c < Ci;
-      const T* src = x + ((long long)b * D + (zin ? z : 0)) * plane * Ci + c;
-      T* dst = ring + (s % NST) * RMAX * C::LDX + (tid / CPR) * C::LDX + cpart * C::VEC;
-#pragma unroll
-      for (int i = 0; i < NCP; ++i) {
-        if (roff[i] == -2) break;
-        const bool ok = zin && roff[i] >= 0;
-        cp_async16(dst + RPI * i * C::LDX, ok ? src + (long long)roff[i] * Ci : x, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  FwdAcc<T> acc;
-  float o_m1 = 0.f, o_0 = 0.f, o_p1 = 0.f;  // output planes z-1, z, z+1
-  const int ly = tid >> lw, lx = tid & (TW - 1);
-  const int h = h0 + ly, w = w0 + lx;
-  for (int s = 0; s < NST - 1; ++s) load_stage(s);
-  for (int s = 0; s < n_stages; ++s) {
-    cp_async_wait<NST - 2>();
-    __syncthreads();  // stage s has landed; everyone is done with stage s-1 and P
-    load_stage(s + NST - 1);
-    const int pi = s / nc, ci = s % nc, c0 = ci * C::CK;
-    if (ci == 0) acc.zero();
-    const T* xs = ring + (s % NST) * RMAX * C::LDX;
-    const int nk = min(C::CK, round_up(Ci - c0, 16));
-    if constexpr (sizeof(T) == 2)
-      fwd_product(acc.v, xs, ks + c0 * C::LDG, nk / 16, R, warp, lane);
-    else if (R > 16 * (NMT - 1))
-      fwd_product<true>(acc.v, xs, ks + c0 * C::LDG, nk, R, tid);
-    else
-      fwd_product<false>(acc.v, xs, ks + c0 * C::LDG, nk, R, tid);
-    if (ci != nc - 1) continue;
-    if constexpr (sizeof(T) == 2) store_p(P, acc.v, R, warp, lane);
-    else store_p(P, acc.v, R, tid);
-    __syncthreads();
-    const int base = ly * SW + lx;
-#pragma unroll
-    for (int th = 0; th < 3; ++th)
-#pragma unroll
-      for (int tw = 0; tw < 3; ++tw) {
-        const int q = base + th * SW + tw, t = th * 3 + tw;
-        o_p1 += P[t * RP + q];
-        o_0 += P[(9 + t) * RP + q];
-        o_m1 += P[(18 + t) * RP + q];
-      }
-    const int zo = z0 - 1 + pi - 1;  // output plane completed by this input plane
-    if (zo >= z0 && h < H && w < W)
-      out[((long long)b * D + zo) * plane + (long long)h * W + w] = from_f<T>(o_m1);
-    o_m1 = o_0;
-    o_0 = o_p1;
-    o_p1 = 0.f;
-  }
+  head_fwd_block<T, T>(smem_raw, x, k, 27, 1, out, B, D, H, W, Ci, Ci, chunk);
 }
 
 // ---------------------------------------------------------------------------

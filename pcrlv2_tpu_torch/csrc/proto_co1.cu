@@ -7,20 +7,25 @@
 // slabs, then a sum over Ci.  Weights w27 (27, Ci), tap t = 9*td + 3*th + tw.
 // Bound on the H100: bytes.  54 FLOPs per input element, far under the
 // card's FLOP-per-byte balance, so the least time is reading x once.
-// Design: a block owns TH rows of one (b, d) plane (TH*W <= 256 voxels) and
-// walks Ci in chunks of 16; per chunk it stages the (3, TH+2, W+2, 16) halo
-// slab in shared memory: each input element is read about 4 times (3 depth
-// planes x halo rows and columns, (10/8)(34/32) at W = 32), mostly from L2.
-// Its 256 threads are 16 channel lanes x 16 voxel groups, as the TPU kernel
-// keeps channels on the lanes: lane c holds the chunk's 27
-// weights of channel c in registers and adds its channel's 27 products of
-// each of its (up to 16) voxels into a per-voxel f32 sum; at the end the 16
-// lanes of each voxel are added by warp shuffles (the TPU kernel's final
-// lane reduction) and one lane writes.  The two voxel groups of a warp are
-// neighbouring voxels, an odd number of slab positions apart, so their 16
-// channel lanes read the two halves of the 32 banks.  The TPU kernel forms
-// each product in the input type and widens it; this kernel widens the
-// inputs and multiplies in f32.
+// It computes the mask heads' forward (#3), so co1_stencil_kernel runs #3's
+// block template (head_fwd.cuh; head_conv.cu's header gives the design):
+// 128-voxel halo tiles, each block walking the depth planes of a chunk on a
+// 2-stage ring of 16-byte cp.async copies, per-plane tap partials summed
+// over channel chunks (bf16: mma.sync, each product exact in f32; f32: an
+// FMA micro-tile, no TF32), three rolling f32 accumulators a voxel, the
+// geometry of ops/head_conv.py (tile, fwd_split).  The template reads w27
+// where it lies, through its strides (kc = 1, kt = Ci): no transpose launch.
+// (The TPU kernel forms each product in the input type and widens it; here
+// the inputs are multiplied in f32.)
+// A block holds the weights of at most MAX_CI = 512 channels in shared
+// memory.  Larger Ci is split on the grid's y axis into slices of at most
+// 512 channels (multiples of the ring's channel chunk); each slice's blocks
+// write f32 partial sums, which conv3d_fwd_kernel_splitsum adds in slice
+// order (no atomics).  A split, not a cp.async ring for the weights: it
+// runs the template and the sum as they are, where a weight ring would
+// change the template #3 runs, and no shape of the model or the tool has
+// Ci above 512.  Ci the 16-byte copies cannot take (not a multiple of 8
+// bf16 / 4 f32) run on zero-padded channels (the wrapper's padded route).
 //
 // co1_band replaces tools/proto_co1_kernel.py::_co1_band_kernel: the same
 // function as 9 banded matrix products, out[(b, d), h, :] = sum over (td, th)
@@ -63,73 +68,24 @@
 // W the 16-byte copies cannot take (not multiples of 8 bf16 / 4 f32) run
 // on zero-padded channels and band columns (the wrapper's padded route).
 
-#include "conv_mma.cuh"
+#include "head_fwd.cuh"
 
 namespace {
 
-// ---- co1_stencil -----------------------------------------------------------
+// ---- co1_stencil: #3's forward template on w27 ----------------------------
 
-constexpr int SC = 16;      // channels per staged chunk = channel lanes
-constexpr int SNT = 256;    // threads: SC lanes x 16 voxel groups
-constexpr int SG = SNT / SC;
-constexpr int SV = 16;      // voxels per thread: a block covers <= SG*SV = 256
-
-template <typename T>
-__global__ void __launch_bounds__(SNT)
-co1_stencil_kernel(const T* __restrict__ x, const T* __restrict__ w27,
-                   T* __restrict__ out, int B, int D, int H, int W, int Ci, int TH) {
-  extern __shared__ float S[];  // [3][TH+2][W+2][SC]
-  const int W2 = W + 2, R = TH + 2;
-  const int hblocks = (H + TH - 1) / TH;
-  const int plane = blockIdx.x / hblocks;  // b*D + d
-  const int h0 = (blockIdx.x - plane * hblocks) * TH;
-  const int b = plane / D, d = plane - b * D;
-  const int nvox = min(TH, H - h0) * W;
-  const int c = threadIdx.x % SC, g = threadIdx.x / SC;
-
-  float acc[SV];
-#pragma unroll
-  for (int j = 0; j < SV; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < Ci; c0 += SC) {
-    const int ck = min(SC, Ci - c0);
-    for (int e = threadIdx.x; e < 3 * R * W2 * SC; e += SNT) {
-      const int cc = e % SC, p = e / SC, wp = p % W2, r = (p / W2) % R, td = p / (W2 * R);
-      const int sd = d + td - 1, sh = h0 + r - 1, sw = wp - 1;
-      float v = 0.f;
-      if (cc < ck && sd >= 0 && sd < D && sh >= 0 && sh < H && sw >= 0 && sw < W)
-        v = to_f(x[((((long long)b * D + sd) * H + sh) * W + sw) * Ci + c0 + cc]);
-      S[e] = v;
-    }
-    float wr[27];
-#pragma unroll
-    for (int t = 0; t < 27; ++t) wr[t] = c < ck ? to_f(w27[t * Ci + c0 + c]) : 0.f;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < SV; ++j) {
-      const int v = g + SG * j;
-      if (v < nvox) {
-        const int hr = v / W, w = v - hr * W;
-        const float* base = S + (hr * W2 + w) * SC + c;
-        float s = 0.f;
-#pragma unroll
-        for (int t = 0; t < 27; ++t)
-          s = fmaf(base[(((t / 9) * R + (t / 3) % 3) * W2 + t % 3) * SC], wr[t], s);
-        acc[j] += s;
-      }
-    }
-    __syncthreads();
-  }
-  // sum the 16 channel lanes of each voxel (lanes c of one group are 16
-  // consecutive lanes of a warp)
-#pragma unroll
-  for (int j = 0; j < SV; ++j) {
-    float s = acc[j];
-#pragma unroll
-    for (int off = SC / 2; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
-    const int v = g + SG * j;
-    if (c == 0 && v < nvox) out[(long long)plane * H * W + (long long)h0 * W + v] = from_f<T>(s);
-  }
+// Block = (sample, tile, depth chunk) of blockIdx.x and the channel slice
+// blockIdx.y of `cs` channels.  OutT = T: the output; f32: the slice's
+// partial sums, slice s at out + s*B*D*H*W.
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(HT, 2)
+co1_stencil_kernel(const T* __restrict__ x, const T* __restrict__ w27, OutT* __restrict__ out,
+                   int B, int D, int H, int W, int Ci, int cs, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int c0 = blockIdx.y * cs;
+  head_fwd_block<T, OutT>(smem_raw, x + c0, w27 + c0, 1, Ci,
+                          out + (long long)blockIdx.y * B * D * H * W, B, D, H, W,
+                          min(cs, Ci - c0), Ci, chunk);
 }
 
 // ---- co1_band --------------------------------------------------------------
@@ -399,14 +355,36 @@ BandKernel<T> band_kernel(int bm, int bn) {
          : nullptr;
 }
 
+// One stencil (geometry from tools/proto_co1_kernel.py::stencil_geometry):
+// S = ceil(Ci / cs) channel slices; S > 1 needs partial, (S, B*D*H*W) f32,
+// whose slices a second launch adds in order.  Returns a CUDA error code.
 template <typename T>
-int launch_stencil(const void* x, const void* w27, void* out, int B, int D, int H,
-                   int W, int Ci, int TH, long long smem, void* stream) {
-  auto kernel = co1_stencil_kernel<T>;
-  if (int err = prepare(kernel, (size_t)smem)) return err;
-  const long long blocks = (long long)B * D * ((H + TH - 1) / TH);
-  kernel<<<(unsigned)blocks, SNT, (size_t)smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w27, (T*)out, B, D, H, W, Ci, TH);
+int launch_stencil(const void* x, const void* w27, void* out, void* partial, int B, int D,
+                   int H, int W, int Ci, int cs, int chunk, void* stream_) {
+  if (Ci % Cfg<T>::VEC || cs < 1 || cs > MAX_CI || (cs < Ci && cs % Cfg<T>::CK) || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int S = (Ci + cs - 1) / cs;
+  if (S > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = (cudaStream_t)stream_;
+  const int TW = tile_w(W), TH = HT / TW;
+  const long long tiles = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) *
+                          ((D + chunk - 1) / chunk);
+  const dim3 grid((unsigned)tiles, (unsigned)S);
+  const size_t smem = fwd_smem<T>(cs < Ci ? cs : Ci);
+  if (S == 1) {
+    if (const int err = prepare(co1_stencil_kernel<T, T>, smem)) return err;
+    co1_stencil_kernel<T, T><<<grid, HT, smem, stream>>>((const T*)x, (const T*)w27, (T*)out,
+                                                          B, D, H, W, Ci, Ci, chunk);
+    return (int)cudaGetLastError();
+  }
+  if (const int err = prepare(co1_stencil_kernel<T, float>, smem)) return err;
+  co1_stencil_kernel<T, float><<<grid, HT, smem, stream>>>(
+      (const T*)x, (const T*)w27, (float*)partial, B, D, H, W, Ci, cs, chunk);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  const long long n = (long long)B * D * H * W;
+  conv3d_fwd_kernel_splitsum<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      (const float*)partial, nullptr, (T*)out, S, n, 1);
   return (int)cudaGetLastError();
 }
 
@@ -441,14 +419,18 @@ int launch_band(const void* x, const void* band, void* out, void* partial, int B
 
 extern "C" {
 
-int co1_stencil_f32(const void* x, const void* w27, void* out, int B, int D, int H,
-                    int W, int Ci, int TH, long long smem, void* stream) {
-  return launch_stencil<float>(x, w27, out, B, D, H, W, Ci, TH, smem, stream);
+// x (B, D, H, W, Ci), w27 (27, Ci), out (B, D, H, W); Ci a multiple of 8
+// (bf16) or 4 (f32), x 16-byte aligned; cs channels a slice (Ci, or at most
+// MAX_CI and a multiple of the ring's chunk), partial (S, B*D*H*W) f32 for
+// S > 1 slices; chunk output planes a block.
+int co1_stencil_f32(const void* x, const void* w27, void* out, void* partial, int B, int D,
+                    int H, int W, int Ci, int cs, int chunk, void* stream) {
+  return launch_stencil<float>(x, w27, out, partial, B, D, H, W, Ci, cs, chunk, stream);
 }
 
-int co1_stencil_bf16(const void* x, const void* w27, void* out, int B, int D, int H,
-                     int W, int Ci, int TH, long long smem, void* stream) {
-  return launch_stencil<__nv_bfloat16>(x, w27, out, B, D, H, W, Ci, TH, smem, stream);
+int co1_stencil_bf16(const void* x, const void* w27, void* out, void* partial, int B, int D,
+                     int H, int W, int Ci, int cs, int chunk, void* stream) {
+  return launch_stencil<bf16>(x, w27, out, partial, B, D, H, W, Ci, cs, chunk, stream);
 }
 
 // x (B, D, H, W, Ci), band (9, (W+2)*Ci, N), out (B, D, H, N); Ci and N

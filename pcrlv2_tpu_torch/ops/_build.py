@@ -102,10 +102,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def entry(name: str, kind: str, dtype: torch.dtype, argtypes, restype=ctypes.c_int):
     """The C entry ``<kind>_<suffix of dtype>`` of ``csrc/<name>.cu``, bound
-    with ``argtypes`` and ``restype`` (pass ``dtype=None`` for an entry
-    without a suffix)."""
+    with ``argtypes`` (a tuple) and ``restype`` (pass ``dtype=None`` for an
+    entry without a suffix); bound once, on the first call."""
     fn = getattr(load(name), kind if dtype is None else f"{kind}_{SUFFIX[dtype]}")
     fn.argtypes = argtypes
     fn.restype = restype
@@ -142,4 +143,8 @@ def sm_count(device: torch.device) -> int:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream on ``t``'s device (the
+    call PyTorch's own generated code makes: a fraction of a microsecond,
+    where ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream
+    object each time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -11,6 +11,13 @@ probe's PyTorch expression (``torch.cat``, slicing, ``torch.roll``,
 ``arange`` integers and the dot's weights ones, so even the dot's f32
 sums (all below 2^24) are exact in any order.
 
+Each probe is one launch of one block (``csrc/probe_mosaic.cu``; its
+header says what bounds them).  ``plan`` works out a probe's launch (its
+dimensions n0, n1, n2 and its output) once per input shapes, so that a call
+of ``run`` on the card costs its checks, one output allocation, one stream
+read and one C call; ``floor`` takes the same path to an empty kernel, the
+least a call can cost.
+
 ``main()`` prints ``OK`` or ``FAIL`` per probe, as the JAX tool does, and
 returns the number of failures; running the module exits with it.  It needs
 a GPU unless ``device="cpu"`` is passed.  ``chip_smoke.py`` phase 9 drives
@@ -26,6 +33,7 @@ import ctypes
 import functools
 import math
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +42,7 @@ from pcrlv2_tpu_torch.tools._common import Case, setup
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = (_I, _P, _P, _P, _I, _I, _I, _P)
+_SCRATCH_LIMIT = 48 * 1024  # bytes of the lane-offset store's shared scratch
 
 
 def _lane_offset_store(a: torch.Tensor) -> torch.Tensor:
@@ -69,37 +78,78 @@ def plain(name: str, *xs: torch.Tensor) -> torch.Tensor:
     return PLAIN[name](*xs).contiguous()
 
 
+class Plan(NamedTuple):
+    """One probe's launch on inputs of given shapes: ``out`` = (shape,
+    dtype) of its output, ``index`` its number in ``csrc/probe_mosaic.cu``,
+    the first input viewed as (``n0``, ``n1``), ``n2`` the second input's
+    last dimension (the dot's output width; 0 without one), ``scratch`` the
+    bytes of shared scratch its kernel needs."""
+
+    out: tuple
+    index: int
+    n0: int
+    n1: int
+    n2: int
+    scratch: int
+
+
 @functools.lru_cache(maxsize=None)
-def out_shape_of(name: str, inputs: tuple) -> tuple:
-    """(shape, dtype) of probe ``name`` on inputs of ``inputs`` = ((shape,
-    dtype), ...), from its plain version on meta tensors."""
+def plan(name: str, inputs: tuple) -> Plan:
+    """Probe ``name``'s launch on inputs of ``inputs`` = ((shape, dtype),
+    ...), worked out once per shapes; the output's (shape, dtype) comes from
+    its plain version on meta tensors."""
     want = PLAIN[name](*(torch.empty(s, dtype=dt, device="meta") for s, dt in inputs))
-    return tuple(want.shape), want.dtype
+    shape, dtype = inputs[0]
+    n0 = shape[0]
+    n1 = math.prod(shape) // n0
+    n2 = inputs[1][0][-1] if len(inputs) > 1 else 0
+    scratch = (2 * n0 * n1 * torch.empty((), dtype=dtype).element_size()
+               if name == "lane-offset store [32:64]" else 0)
+    return Plan((tuple(want.shape), want.dtype), _INDEX[name], n0, n1, n2, scratch)
+
+
+def _launch(name: str, p: Plan, xs, index: int) -> torch.Tensor:
+    """One C call of probe number ``index`` on ``xs`` by plan ``p``."""
+    a = xs[0]
+    if p.scratch > _SCRATCH_LIMIT:
+        raise ValueError(f"probe {name!r}: its scratch must fit in 48 KB of shared memory")
+    out = torch.empty(p.out[0], dtype=p.out[1], device=a.device)
+    err = _build.entry("probe_mosaic", "probe_run", a.dtype, _SIG)(
+        index, a.data_ptr(), xs[1].data_ptr() if len(xs) > 1 else None, out.data_ptr(),
+        p.n0, p.n1, p.n2, _build.stream_ptr(a))
+    if err:
+        _build.check(err, f"probe {name!r} launch")
+    return out
+
+
+def _checked_plan(name: str, out_shape, xs) -> Plan:
+    p = plan(name, tuple((x.shape, x.dtype) for x in xs))
+    if (tuple(out_shape[0]), out_shape[1]) != p.out:
+        raise ValueError(f"probe {name!r} gives {p.out}, not {tuple(out_shape[0])} "
+                         f"{out_shape[1]}")
+    return p
 
 
 def run(name: str, out_shape, *xs: torch.Tensor) -> torch.Tensor:
     """Probe ``name`` on ``xs`` into a new tensor of ``out_shape`` = (shape,
     dtype), as the JAX tool's ``run`` takes it.  Raises if ``out_shape`` is
     not the probe's."""
-    shape, dtype = out_shape
-    want = out_shape_of(name, tuple((tuple(x.shape), x.dtype) for x in xs))
-    if (tuple(shape), dtype) != want:
-        raise ValueError(f"probe {name!r} gives {want}, not {tuple(shape)} {dtype}")
+    p = _checked_plan(name, out_shape, xs)
     if _build.check_inputs(*xs) == "cpu":
         return plain(name, *xs)
-    a = xs[0]
-    if name == "lane-offset store [32:64]" and 2 * a.numel() * a.element_size() > 48 * 1024:
-        raise ValueError(f"probe {name!r}: its scratch must fit in 48 KB of shared memory")
-    n0 = a.shape[0]
-    n1 = a.numel() // n0
-    n2 = xs[1].shape[-1] if len(xs) > 1 else 0
-    out = torch.empty(tuple(shape), dtype=dtype, device=a.device)
-    err = _build.entry("probe_mosaic", "probe_run", a.dtype, _SIG)(
-        _INDEX[name], a.data_ptr(), xs[1].data_ptr() if len(xs) > 1 else None,
-        out.data_ptr(), n0, n1, n2, _build.stream_ptr(a))
-    _build.check(err, f"probe {name!r} launch")
+    out = _launch(name, p, xs, p.index)
     _build.launches["probe_mosaic"] += 1
     return out
+
+
+def floor(name: str, out_shape, *xs: torch.Tensor) -> torch.Tensor:
+    """``run``'s path on the card with an empty kernel in place of the
+    probe's (its output left unwritten): the least a call of that path
+    costs, for timing.  No launch counter counts it."""
+    p = _checked_plan(name, out_shape, xs)
+    if _build.check_inputs(*xs) != "cuda":
+        raise RuntimeError("floor launches on the card only")
+    return _launch(name, p, xs, -1)
 
 
 def probes(device) -> list:
@@ -115,7 +165,7 @@ def probes(device) -> list:
     xb = x.to(torch.bfloat16)
     inputs = [(x, x), (x64, x64), (big,), (big,), (x,), (x9,), (x3,), (x, x), (big,),
               (big,), (x9, w9), (x,), (big,), (xb, xb)]
-    return [(name, out_shape_of(name, tuple((tuple(t.shape), t.dtype) for t in xs)), xs)
+    return [(name, plan(name, tuple((t.shape, t.dtype) for t in xs)).out, xs)
             for name, xs in zip(PLAIN, inputs)]
 
 

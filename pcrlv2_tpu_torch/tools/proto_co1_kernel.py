@@ -8,7 +8,13 @@ SAME 3³ conv with one output channel and no bias, x (B, D, H, W, Ci), w
 (3, 3, 3, Ci, 1) → (B, D, H, W), in the JAX tool's two formulations:
 
 * ``conv3d_co1_fwd`` (#8, ``_co1_kernel``): 27 multiply-adds on (H, W, Ci)
-  slabs, then a sum over Ci, by the ``co1_stencil`` kernel;
+  slabs, then a sum over Ci, by the ``co1_stencil`` kernel.  It is the
+  function of the mask heads' forward (#3), so it runs #3's block template
+  on its own w27 (27, Ci) with #3's geometry (``ops/head_conv.py``:
+  ``tile``, ``fwd_split``); Ci above ``head_conv.MAX_CI`` is split into
+  channel slices (``stencil_geometry``) whose f32 partials a second launch
+  adds in order, and Ci the 16-byte copies cannot take runs zero-padded
+  (``head_conv.vector_channels``);
 * ``conv3d_co1_band`` (#9, ``_co1_band_kernel``): 9 banded products
   ``plane_td[th:th+H].reshape(H, (W+2)·Ci) @ band[3·td + th]`` by the
   ``co1_band`` kernel, on the bands ``band_mats`` builds outside it.  The
@@ -47,6 +53,7 @@ import torch.nn.functional as F
 from pcrlv2_tpu_torch.ops import _build
 from pcrlv2_tpu_torch.ops import conv3d_kernel as ck
 from pcrlv2_tpu_torch.ops import conv3d_packed as cp
+from pcrlv2_tpu_torch.ops import head_conv as hc
 from pcrlv2_tpu_torch.ops.conv3d_kernel import OFFSETS
 from pcrlv2_tpu_torch.tools._common import Case, fmt_ms, rel_err, setup, tflops, time_ms
 
@@ -54,11 +61,9 @@ from pcrlv2_tpu_torch.tools._common import Case, fmt_ms, rel_err, setup, tflops,
 SHAPES = [(64, 64, 32, 64), (32, 32, 16, 128)]
 BATCH = 32
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGS = {"co1_stencil": (_P, _P, _P) + (_I,) * 6 + (_L, _P),
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGS = {"co1_stencil": (_P,) * 4 + (_I,) * 7 + (_P,),
          "co1_band": (_P,) * 4 + (_I,) * 15 + (_P,)}
-_STENCIL_VOXELS = 256   # voxels one stencil block covers at most
-_STENCIL_CHUNK = 16     # channels it stages per pass
 #: output rows (b, d, h) of one band block: 256, or 128 where a slab of 256
 #: rows of tiny planes would not fit a block's shared memory (H = 1)
 _BAND_BM = (256, 128)
@@ -70,9 +75,18 @@ def _fn(kind: str, dtype: torch.dtype):
     return _build.entry("proto_co1", kind, dtype, _SIGS[kind])
 
 
-def stencil_rows(h: int, w: int) -> int:
-    """Output rows of one plane a stencil block covers (TH·W ≤ 256)."""
-    return max(1, min(h, _STENCIL_VOXELS // w))
+def stencil_geometry(b: int, d: int, h: int, w: int, ci: int, sms: int,
+                     dtype: torch.dtype) -> dict:
+    """#8's launch on #3's template, Ci already a multiple of the 16-byte
+    copy's width: ``cs`` channels a slice (all Ci up to ``hc.MAX_CI``, else
+    ``n_ci`` slices of equal multiples of ``hc.CHUNK``, the last shorter)
+    and ``chunk``, the output planes a block walks (``hc.fwd_split``, with
+    the slices counted among the blocks)."""
+    n_ci = -(-ci // hc.MAX_CI)
+    step = hc.CHUNK[dtype]
+    cs = ci if n_ci == 1 else -(-ci // (n_ci * step)) * step
+    n_ci = -(-ci // cs)
+    return {"cs": cs, "n_ci": n_ci, "chunk": hc.fwd_split(b * n_ci, d, h, w, sms, dtype)}
 
 
 def band_tiles(b: int, d: int, h: int, bn: int, dtype: torch.dtype) -> dict:
@@ -197,14 +211,21 @@ def co1_stencil(x: torch.Tensor, w27: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"weights {tuple(w27.shape)} do not fit Ci={ci}")
     if _build.check_inputs(x, w27) == "cpu":
         return co1_plain(x, w27)
-    if x.numel() == 0 or w > _STENCIL_VOXELS:
-        raise ValueError(f"co1_stencil takes a non-empty input with W <= "
-                         f"{_STENCIL_VOXELS}, got {tuple(x.shape)}")
-    th = stencil_rows(h, w)
-    smem = 4 * 3 * (th + 2) * (w + 2) * _STENCIL_CHUNK
+    if x.numel() == 0:
+        raise ValueError(f"co1_stencil takes a non-empty input, got {tuple(x.shape)}")
+    civ = hc.vector_channels(ci, x.dtype)
+    if civ != ci:
+        x, w27 = ck.pad_last(x, civ), F.pad(w27, (0, civ - ci))
+    if x.data_ptr() % 16:
+        raise ValueError("co1_stencil needs a 16-byte aligned x")
+    geo = stencil_geometry(b, d, h, w, civ, _build.sm_count(x.device), x.dtype)
     out = torch.empty((b, d, h, w), dtype=x.dtype, device=x.device)
-    err = _fn("co1_stencil", x.dtype)(x.data_ptr(), w27.data_ptr(), out.data_ptr(),
-                                      b, d, h, w, ci, th, smem, _build.stream_ptr(x))
+    partial = (torch.empty((geo["n_ci"], b * d * h * w), dtype=torch.float32, device=x.device)
+               if geo["n_ci"] > 1 else None)
+    err = _fn("co1_stencil", x.dtype)(
+        x.data_ptr(), w27.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), b, d, h, w, civ, geo["cs"],
+        geo["chunk"], _build.stream_ptr(x))
     _build.check(err, "co1_stencil launch")
     _build.launches["proto_co1"] += 1
     return out

@@ -1,5 +1,6 @@
 """The Co=1 head kernels' block walk (#3 forward, #4 fused backward) and
-their padded-channel route, on the CPU.
+their padded-channel route, and the prototype tool's stencil (#8) on #3's
+forward template, on the CPU.
 
 No card here: the CUDA kernels run only on one (``chip_smoke.py`` holds them
 to their plain versions there).  What the CPU can hold is the arithmetic
@@ -13,6 +14,10 @@ dx = G27 @ Kᵀ, the dK partial of each block of the persistent grid of
 added in the second launch's fixed order.  Both
 must equal the plain versions at the main path's planes and channels (the
 batch cut to 1; the tiling and split are the main path's own).
+``_emulate_stencil`` runs #3's walk on #8's launch
+(``proto_co1_kernel.stencil_geometry``): its weights w27 (27, Ci) read
+through the template's strides, Ci above ``hc.MAX_CI`` in channel slices
+whose partials are added in slice order; it must equal ``co1_plain``.
 """
 
 import math
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from pcrlv2_tpu_torch.ops import head_conv as hc
+from pcrlv2_tpu_torch.tools import proto_co1_kernel as co
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -202,3 +208,70 @@ def test_padded_route_matches_plain(ci):
     _close(dx[..., :ci], ref_dx)
     assert torch.equal(dx[..., ci:], torch.zeros_like(dx[..., ci:]))
     _close(dk[:ci], ref_dk)
+
+
+def _emulate_stencil(x, w27, batch):
+    """#8's launch at ``batch`` samples, walked on x: #3's block walk on each
+    channel slice, k[c, t] = w27[t, c0 + c] (the strides kc = 1, kt = Ci),
+    the slices' f32 partials added in slice order."""
+    b, d, h, w, ci = x.shape
+    geo = co.stencil_geometry(batch, d, h, w, ci, SMS, torch.float32)
+    total = None
+    for c0 in range(0, ci, geo["cs"]):
+        part = _emulate_fwd(x[..., c0:c0 + geo["cs"]], w27[:, c0:c0 + geo["cs"]].T, geo["chunk"])
+        total = part if total is None else total + part
+    return total
+
+
+def _w27(ci, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((27, ci), generator=gen) * 2 - 1) / math.sqrt(27 * ci)
+
+
+@pytest.mark.parametrize("shape", [(co.BATCH,) + s for s in co.SHAPES], ids=str)
+def test_stencil_block_walk_matches_co1_plain(shape):
+    """#8 at the tool's two shapes (batch cut to 1; the depth chunks those of
+    B = 32) on w27 (27, Ci) weights: equal to ``co1_plain`` in f32 at 1e-5
+    of the largest output."""
+    x, _, _ = _inputs((1,) + shape[1:], seed=4)
+    w27 = _w27(shape[4], seed=5)
+    _close(_emulate_stencil(x, w27, shape[0]), co.co1_plain(x, w27))
+
+
+def test_stencil_channel_slices_match_co1_plain():
+    """Ci = 1100 > ``hc.MAX_CI``: slices of at most ``MAX_CI`` channels, each
+    a multiple of the ring's chunk, in both dtypes (bf16 on 1104 padded
+    channels); the f32 walk over them, partials added in order, equals
+    ``co1_plain``."""
+    for dtype in (torch.float32, torch.bfloat16):
+        ci = hc.vector_channels(1100, dtype)
+        geo = co.stencil_geometry(1, 3, 5, 7, ci, SMS, dtype)
+        assert geo["n_ci"] == 3 and geo["cs"] <= hc.MAX_CI
+        assert geo["cs"] % hc.CHUNK[dtype] == 0
+        assert (geo["n_ci"] - 1) * geo["cs"] < ci <= geo["n_ci"] * geo["cs"]
+    x, _, _ = _inputs((1, 3, 5, 7, 1100), seed=6)
+    w27 = _w27(1100, seed=7)
+    _close(_emulate_stencil(x, w27, 1), co.co1_plain(x, w27))
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 3, 300, 8), (2, 5, 70, 257, 1104)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_stencil_geometry_covers_each_voxel_once(shape, dtype):
+    """W > 256 (the old stencil's limit): the blocks of #8's grid, decoded as
+    the template decodes blockIdx (depth chunk, tile column, tile row,
+    sample; the channel slice on y), write every output voxel exactly once
+    per slice, and no tile's halo rows exceed the template's RMAX = 208."""
+    b, d, h, w, ci = shape
+    geo = co.stencil_geometry(b, d, h, w, ci, SMS, dtype)
+    th, tw = hc.tile(w)
+    tiles_w, tiles_h = -(-w // tw), -(-h // th)
+    nsplit = -(-d // geo["chunk"])
+    writes = torch.zeros((b, d, h, w), dtype=torch.int32)
+    for blk in range(b * tiles_h * tiles_w * nsplit):
+        sp, idx = blk % nsplit, blk // nsplit
+        w0, idx = idx % tiles_w * tw, idx // tiles_w
+        h0, bb = idx % tiles_h * th, idx // tiles_h
+        z0 = sp * geo["chunk"]
+        writes[bb, z0:min(d, z0 + geo["chunk"]), h0:h0 + th, w0:w0 + tw] += 1
+        assert (min(th, h - h0) + 2) * (tw + 2) <= 208
+    assert torch.equal(writes, torch.ones_like(writes))

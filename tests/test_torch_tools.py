@@ -151,6 +151,26 @@ def test_probe_matches_jax_bit_for_bit(name, jax_probes):
         np.testing.assert_array_equal(got.view(torch.int32).numpy(), want.view(np.int32))
 
 
+def test_probe_launch_table_matches_per_call_derivation():
+    """#10's launch table, worked out once per input shapes (``plan``): for
+    each of the 14 probes the first input viewed as (n0, n1), n2 the second
+    input's last dimension (0 without one), the probe's number and the
+    output's shape and dtype, as ``run`` derived them on every call before;
+    a wrong ``out_shape`` still raises, and ``floor`` runs on the card only."""
+    for i, (name, out_shape, xs) in enumerate(pm.probes("cpu")):
+        p = pm.plan(name, tuple((x.shape, x.dtype) for x in xs))
+        n0 = xs[0].shape[0]
+        assert (p.n0, p.n1, p.n2) == (n0, xs[0].numel() // n0,
+                                      xs[1].shape[-1] if len(xs) > 1 else 0)
+        want = pm.plain(name, *xs)
+        assert p.out == out_shape == (tuple(want.shape), want.dtype)
+        assert p.index == i
+        with pytest.raises(ValueError, match="gives"):
+            pm.run(name, ((1,), out_shape[1]), *xs)
+        with pytest.raises(RuntimeError, match="card"):
+            pm.floor(name, out_shape, *xs)
+
+
 @pytest.mark.parametrize("which", ["conv27", "conv9", "co1", "band"])
 def test_chunked_plain_equals_unchunked(which):
     """The plain versions run a sample at a time on the card (the whole
