@@ -29,31 +29,38 @@ Phases, any failure exits non-zero without the final line:
    --steps_per_epoch 10``) under ``PCRL_CONV3D=pallas`` (the default) in
    f32 and with ``--amp``, and under ``packed`` and ``im2col`` likewise, with
    every launch counter set to 0 just before each run and read just after:
-   the launches must be those of the selector (``expected_launches``),
-   every loss finite, and the ``.pt`` must load strictly.
-   The step time is the median over the steps after the first ``WARMUP``
-   of each step's own time, recovered from the running average ``BT`` that
-   the CLI logs after every step.  Then ``pallas`` in f32 and with ``--amp``
-   for ``LONG_STEPS`` steps at the CLI's default ``--log_every 10``, where
-   the host reads the metrics only at the log: step time = the mean of the
-   windows 2-3.  Last, one ``train_step`` on device-resident views, after a
-   warm-up step, under ``torch.cuda.set_sync_debug_mode("error")``: it must
-   not synchronise with the device (the loss guard runs on the device);
+   the launches must be those of the selector (``expected_launches``; a
+   graph replay adds the counts its capture made), every loss finite, and
+   the ``.pt`` must load strictly.  The CLI runs each step after the first
+   as a CUDA graph replay; ``pallas`` f32 and ``--amp``, ``packed --amp`` and
+   ``im2col --amp`` (``EAGER_RUNS``) run again on the eager loop
+   (``cli.main.prepare`` → ``run_training(cuda_graph=False)``).  The step
+   time is the median over the steps after the first ``WARMUP`` of each
+   step's own time, recovered from the running average ``BT`` that the CLI
+   logs after every step.  Then the ``EAGER_RUNS`` for ``LONG_STEPS`` steps
+   at the CLI's default ``--log_every 10``, where the host reads the
+   metrics only at the log, on the graphs and eagerly: step time = the mean
+   of the windows 2-3.  Last, one ``train_step`` on device-resident views,
+   after a warm-up step, under ``torch.cuda.set_sync_debug_mode("error")``:
+   it must not synchronise with the device (the loss guard runs on the
+   device);
 7. run the same CLI training path (``cli.main.prepare`` → ``Trainer`` behind
    ``device_prefetch``) again under ``torch.profiler`` for each of those
-   runs: device time per step by kernel group over ``PROFILED`` steps after
-   the first ``WARMUP``, and the device's busy share (that time over the
-   unprofiled step time); under ``--amp`` the #5/#6 kernels it records
+   runs, on the graphs and (``EAGER_RUNS``) eagerly: device time per step
+   by kernel group over ``PROFILED`` steps after the first ``WARMUP``, the
+   device's busy share (that time over the unprofiled step time), device
+   kernels a step and the host's CUDA API calls a step (kernel launches
+   against graph launches); under ``--amp`` the #5/#6 kernels it records
    must all be their tensor-core (``_mma``) ones;
-8. the disk path under ``PCRL_CONV3D=packed``: write a processed-LUNA tree
-   (``write_synthetic_luna_tree``, 10 subsets × 2 UIDs × 3 pairs, so one
-   epoch of folds 0-6 is 10 steps at b=4), run the CLI with ``--data
-   --epochs 1 --eval_every 1 --eval_batches 2 --save_every 1``, then again
-   with ``--resume <output>/train_state --epochs 2``: it must resume at
-   epoch 2, every eval loss be finite, the launch counts be those of the
-   steps and eval batches run, and the ``.pt`` load strictly; step time
-   (median of steps 4-10 of epoch 0), ``DT``, and the busy share of the
-   same path under the profiler;
+8. the disk path under ``PCRL_CONV3D=packed``, on the graphs: write a
+   processed-LUNA tree (``write_synthetic_luna_tree``, 10 subsets × 2 UIDs
+   × 3 pairs, so one epoch of folds 0-6 is 10 steps at b=4), run the CLI
+   with ``--data --epochs 1 --eval_every 1 --eval_batches 2 --save_every
+   1``, then again with ``--resume <output>/train_state --epochs 2``: it
+   must resume at epoch 2, every eval loss be finite, the launch counts be
+   those of the steps and eval batches run, and the ``.pt`` load strictly;
+   step time (median of steps 4-10 of epoch 0), ``DT``, and the busy share
+   of the same path under the profiler;
 9. the kernel prototype tools (``pcrlv2_tpu_torch.tools``): each tool's
    ``main()`` (``proto_conv``, ``proto_co1_kernel`` ``main`` and ``main2``,
    ``probe_mosaic``) at the JAX tools' shapes (B = 32, bf16) with every
@@ -70,7 +77,18 @@ Phases, any failure exits non-zero without the final line:
    per call and the device time of ``run``, of the probe's PyTorch
    expression and of ``probe_mosaic.floor`` (the same path to an empty
    kernel).  No training step launches these kernels, so their
-   ``launches`` in the kernels line are the counts of the tool runs.
+   ``launches`` in the kernels line are the counts of the tool runs;
+10. the pipelined step as CUDA graphs (``train/trainer.py::CapturedStep``)
+   against the eager loop, in f32 and with ``--amp`` under ``pallas``: from
+   one initial state and seed, two epochs of ``GRAPH_EPOCHS`` batches (a new
+   learning rate in the second, each ending in the step-only graph) on each;
+   every parameter, BN statistic, momentum buffer, the step counter, both
+   generators' states and every step's metrics must be bit-identical, and
+   the launch counts those of the steps (``expected_launches``, under
+   replay); then ``SYNC_STEPS`` more steps of each under
+   ``torch.cuda.set_sync_debug_mode("error")``, timing the host per step;
+   then a graph run (``--amp``) stopped after epoch 0 and resumed from its
+   saved state must equal the unbroken run.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -123,6 +141,7 @@ LONG_STEPS = 30  # CLI steps of the --log_every 10 runs (phase 6)
 LOG_EVERY = 10   # the CLI's default --log_every
 WARMUP = 3     # first CLI steps left out of the step time and the profile
 PROFILED = 4   # steps under the profiler (phase 7)
+PROFILE_STEPS = WARMUP + PROFILED + 2  # batches of a profiled run (phase 7)
 # (batch, input size): the two global views run at B each, the 6 local
 # views concatenated at 6·B
 CALLS = {"global": (BATCH, (64, 64, 32)), "local": (6 * BATCH, (16, 16, 16))}
@@ -178,28 +197,26 @@ TOOL_ODD_STENCIL = [(1, 2, 3, 300, 8), (2, 3, 5, 6, 1), (1, 2, 7, 9, 3), (2, 4, 
 PROBE_REPS = 20  # calls a probe's device time is averaged over (phase 9)
 
 # Launches per training step: the 14 3³ convs with Co > 1 run forward 3
-# times (x1, x2, locals) = 42; their filter gradients are 42 and their dx 39
-# (the stem's input needs no gradient) when every decoder level's features
-# get a gradient, fewer in a step whose random SimSiam levels leave a
-# decoder stage of x2 or of the locals out of the loss (its convs then run
-# neither dw nor dx); 9 head forwards and 1 head backward (x1's selected
-# mask).  An eval batch runs the 42 forwards and 9 head forwards only.
-# Which kernel runs the forward and the dx follows PCRL_CONV3D:
+# times (x1, x2, locals) = 42, their filter gradients 42 and their dx 39
+# (the stem's input needs no gradient): every SimSiam level's loss runs and
+# the drawn one is selected, so every decoder stage of every call gets a
+# gradient whatever the draw; 9 head forwards and 3 head backwards (x1's
+# three masks).  An eval batch runs the 42 forwards and 9 head forwards
+# only.  Which kernel runs the forward and the dx follows PCRL_CONV3D:
 FWD_DX = {"pallas": ("conv3d_fwd", "conv3d_fwd"),
           "packed": ("conv3d_packed", "conv3d_packed"),
           "im2col": ("conv3d_im2col", "conv3d_fwd")}
 
 
-def expected_launches(selector: str, steps: int, eval_batches: int, dw: int) -> dict:
+def expected_launches(selector: str, steps: int, eval_batches: int) -> dict:
     """The counts a run of ``steps`` train steps and ``eval_batches`` eval
-    batches must show, given its ``dw`` filter-gradient launches."""
-    if not 3 * steps < dw <= 42 * steps:
-        raise AssertionError(f"{dw} filter gradients in {steps} steps")
+    batches must show (a graph replay adds its capture's counts)."""
     expect = {k: 0 for k in KERNELS}
-    expect.update(conv3d_dw=dw, head_fwd=9 * (steps + eval_batches), head_bwd=steps)
+    expect.update(conv3d_dw=42 * steps, head_fwd=9 * (steps + eval_batches),
+                  head_bwd=3 * steps)
     fwd, dx = FWD_DX[selector]
     expect[fwd] += 42 * (steps + eval_batches)
-    expect[dx] += dw - 3 * steps
+    expect[dx] += 39 * steps
     return expect
 
 
@@ -627,7 +644,7 @@ def launched(selector: str, steps: int, eval_batches: int, what: str) -> dict:
     from pcrlv2_tpu_torch.ops import _build
 
     counts = {k: _build.launches[k] for k in KERNELS}
-    expect = expected_launches(selector, steps, eval_batches, counts["conv3d_dw"])
+    expect = expected_launches(selector, steps, eval_batches)
     if counts != expect:
         raise AssertionError(f"{what}: launches {counts}, expected {expect}")
     return counts
@@ -652,26 +669,38 @@ def step_times(steps) -> list:
     return [avg[0]] + [(k + 1) * avg[k] - k * avg[k - 1] for k in range(1, len(avg))]
 
 
-def run_cli(selector: str, amp: bool, out_dir: str, steps: int = STEPS, log_every: int = 1):
-    """Phase 6: the port's CLI in this process, counters read around it.
-    At ``log_every`` > 1 the logged rows are windows: ``step_s`` then holds
-    each window's mean step time and the step time is the mean of windows
-    2-3."""
+def run_cli(selector: str, amp: bool, out_dir: str, steps: int = STEPS, log_every: int = 1,
+            cuda_graph: bool = True):
+    """Phase 6: the port's CLI in this process, counters read around it; with
+    ``cuda_graph=False`` the same path (``cli.main.prepare`` →
+    ``run_training``) on the eager loop.  At ``log_every`` > 1 the logged
+    rows are windows: ``step_s`` then holds each window's mean step time and
+    the step time is the mean of windows 2-3."""
     import torch
 
     from pcrlv2_tpu_torch.cli.main import main as cli_main
+    from pcrlv2_tpu_torch.cli.main import prepare
     from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
     from pcrlv2_tpu_torch.ops import _build
     from pcrlv2_tpu_torch.train.checkpoint import import_pcrlv23d
+    from pcrlv2_tpu_torch.train.trainer import run_training
 
+    argv = cli_argv(amp, out_dir, steps, log_every)
+    allocated_before = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     with conv_selector(selector):
         _build.launches.clear()
         t0 = time.perf_counter()
-        cli_main(cli_argv(amp, out_dir, steps, log_every))
+        if cuda_graph:
+            trainer = cli_main(argv)
+        else:
+            model, cfg, loaders, aug_fn, device = prepare(argv)
+            trainer = run_training(model, cfg, loaders["train"], aug_fn, device,
+                                   cuda_graph=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = launched(selector, steps, 0, f"CLI under {selector}{' --amp' if amp else ''}")
+        counts = launched(selector, steps, 0, f"CLI under {selector}{' --amp' if amp else ''}"
+                          f"{'' if cuda_graph else ' (eager)'}")
     _, rows = step_rows(os.path.join(out_dir, "metrics.jsonl"))
     if len(rows) != steps // log_every:
         raise AssertionError(f"expected {steps // log_every} logged rows, got {len(rows)}")
@@ -680,11 +709,15 @@ def run_cli(selector: str, amp: bool, out_dir: str, steps: int = STEPS, log_ever
     step_s = step_times(rows)
     typical = (statistics.median(step_s[WARMUP:]) if log_every == 1
                else statistics.mean(step_s[1:3]))
+    captured = trainer.captured
     return {"counts": counts, "wall_s": wall, "log_every": log_every, "step_s": step_s,
-            "step_s_median": typical,
+            "step_s_median": typical, "cuda_graph": cuda_graph,
+            "graphs": 0 if captured is None else len(captured.graphs),
+            "capture_s": [] if captured is None else list(captured.capture_s.values()),
             "dt_s": [r["DT"] for r in rows],
             "losses": [r["loss"] for r in rows],
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "allocated_gib_before": allocated_before}
 
 
 def sync_free_step() -> dict:
@@ -705,13 +738,17 @@ def sync_free_step() -> dict:
              "locals": torch.rand((BATCH, 6) + CALLS["local"][1] + (1,), generator=gen,
                                   device=dev)}
     state = TrainState(PCRLv23d(device="cuda", seed=7))
-    levels = [i % 3 for i in range(1 + 2 * 6)]  # 1 + 2·V for V = 6 local views
-    train_step(state, views, levels, 1e-3, 0)
+    # 1 + 2·V levels for V = 6 local views, lr and epoch on the device, as
+    # the trainer passes them
+    levels = torch.arange(1 + 2 * 6, device=dev) % 3
+    lr = torch.full((), 1e-3, device=dev)
+    epoch = torch.zeros((), dtype=torch.int64, device=dev)
+    train_step(state, views, levels, lr, epoch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        metrics = train_step(state, views, levels, 1e-3, 0)
+        metrics = train_step(state, views, levels, lr, epoch)
         host_s = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -790,11 +827,15 @@ def _kernel_us(evt) -> float:
     return 0.0
 
 
-def profile_cli(argv, step_s: float):
+def profile_cli(argv, step_s: float, cuda_graph: bool = True):
     """Phase 7: the CLI's training path under ``torch.profiler``: the
-    ``Trainer`` that ``run_training`` builds, fed through ``device_prefetch``;
-    each step's start is marked on the consumer side (after a device sync),
-    and the profile holds ``PROFILED`` steps after the first ``WARMUP``."""
+    ``Trainer`` that ``run_training`` builds (on the graph path, or eager
+    with ``cuda_graph=False``), fed through ``device_prefetch``; each batch's
+    fetch is marked (after a device sync).  The trainer fetches a batch
+    before the step that augments it, so profiler period k ≥ 2 holds step
+    k − 2: the schedule waits out the first augmentation and ``WARMUP``
+    steps (the graph's capture among them) and records the ``PROFILED``
+    steps after them; ``argv`` must give ``PROFILE_STEPS`` batches."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -803,7 +844,7 @@ def profile_cli(argv, step_s: float):
     from pcrlv2_tpu_torch.train.trainer import Trainer
 
     model, cfg, loaders, aug_fn, device = prepare(argv)
-    trainer = Trainer(model, cfg, aug_fn, device)
+    trainer = Trainer(model, cfg, aug_fn, device, cuda_graph=cuda_graph)
 
     def marked(batches):
         for batch in batches:
@@ -811,21 +852,25 @@ def profile_cli(argv, step_s: float):
             prof.step()
             yield batch
 
-    # profiler period 0 ends at the first batch, so period k is step k − 1
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=WARMUP, warmup=1, active=PROFILED,
+                     schedule=schedule(wait=WARMUP + 1, warmup=1, active=PROFILED,
                                        repeat=1)) as prof:
             with contextlib.closing(device_prefetch(
                     loaders["train"].epoch(0), device)) as batches:
                 trainer.train_epoch(0, marked(batches))
     finally:
         trainer.logger.close()
+    events = prof.key_averages()
     # the profiler's own step annotation also shows as a device entry
-    kernels = [(e.key, _kernel_us(e), e.count) for e in prof.key_averages()
+    kernels = [(e.key, _kernel_us(e), e.count) for e in events
                if _kernel_us(e) > 0 and not e.key.startswith("ProfilerStep")]
     if not kernels:
         raise AssertionError("the profiler recorded no device kernel")
+    # the host's CUDA API calls: cudaLaunchKernel (eager launches, ours and
+    # PyTorch's) against cudaGraphLaunch (a replay), copies and the rest
+    api = {e.key: e.count / PROFILED for e in events
+           if _kernel_us(e) == 0 and re.match(r"cu(da)?[A-Z]", e.key)}
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / PROFILED
     groups = {label: 0.0 for _, label in GROUPS}
     groups["other"] = 0.0
@@ -837,6 +882,11 @@ def profile_cli(argv, step_s: float):
                    for m in [re.search(r"conv3d_(packed|im2col)_kernel_\w+(<[^>]*>)?", n)] if m})
     return {"device_ms_per_step": busy_ms, "busy_share": busy_ms / 1e3 / step_s,
             "launches_per_step": sum(c for _, _, c in kernels) / PROFILED,
+            "host_api_per_step": api,
+            "kernel_launch_calls_per_step": sum(v for k, v in api.items()
+                                                if "LaunchKernel" in k),
+            "graph_launches_per_step": api.get("cudaGraphLaunch", 0.0),
+            "cuda_graph": cuda_graph,
             "ms_per_step_by_group": groups, "slab_kernels": slab,
             "top_kernels": [{"name": n[:120], "ms_per_step": us / 1e3 / PROFILED,
                              "launches_per_step": c / PROFILED}
@@ -845,8 +895,9 @@ def profile_cli(argv, step_s: float):
 
 def print_profile(name: str, p: dict):
     print(f"[7] profile {name}: device {p['device_ms_per_step']:.2f} ms/step, "
-          f"busy {p['busy_share']:.1%}, {p['launches_per_step']:.1f} kernel launches "
-          f"a step; " + ", ".join(
+          f"busy {p['busy_share']:.1%}, {p['launches_per_step']:.1f} device kernels "
+          f"a step; host API a step: {p['kernel_launch_calls_per_step']:.1f} kernel launch "
+          f"calls, {p['graph_launches_per_step']:.1f} graph launches; " + ", ".join(
               f"{k} {v:.2f}" for k, v in sorted(
                   p["ms_per_step_by_group"].items(), key=lambda kv: -kv[1]) if v)
           + (f"; #5/#6 kernels {p['slab_kernels']}" if p["slab_kernels"] else ""),
@@ -1020,6 +1071,202 @@ def probe_times() -> list:
     return rows
 
 
+# Phase 10: two epochs of these many batches, eager and replayed; then the
+# replay loop's steps under set_sync_debug_mode("error")
+GRAPH_EPOCHS = (3, 3)
+SYNC_STEPS = 6
+# (run name, PCRL_CONV3D, --amp) run on the eager loop too (phases 6 and 7)
+EAGER_RUNS = [("f32", "pallas", False), ("amp", "pallas", True),
+              ("packed_amp", "packed", True), ("im2col_amp", "im2col", True)]
+
+
+def graph_batches(seed: int) -> dict:
+    """Phase 10's raw batches on the card: {epoch: [batch, ...]}."""
+    import torch
+
+    from pcrlv2_tpu_torch.data.pipeline import synthetic_luna_batch
+
+    return {epoch: [{k: torch.from_numpy(v).cuda() for k, v in synthetic_luna_batch(
+        BATCH, seed=seed + 10 * epoch + i).items()} for i in range(n)]
+            for epoch, n in enumerate(GRAPH_EPOCHS)}
+
+
+def graph_trainer(amp: bool, out: str, cuda_graph: bool, seed: int = 7):
+    """A trainer at full width from one seed (epochs 0-2 of the cosine LR, so
+    epoch 1 runs at another rate than epoch 0)."""
+    from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    model = PCRLv23d(policy=DEFAULT_POLICY if amp else PARITY_POLICY, seed=seed, device="cuda")
+    cfg = TrainConfig(b=BATCH, epochs=2, lr=1e-2, log_every=100, seed=3, amp=amp, output=out)
+    return Trainer(model, cfg, make_luna_aug_fn(), "cuda", cuda_graph=cuda_graph)
+
+
+def run_epochs(trainer, batches: dict, what: str):
+    """``trainer.train_epoch`` over ``batches``; every step's metrics copied
+    as the step returns (before a replay writes over them); the launch
+    counters set to 0 before and checked after.  Returns (metrics, counts)."""
+    import torch
+
+    from pcrlv2_tpu_torch.ops import _build
+
+    seen = []
+    step = trainer.step
+
+    def recorded(views, raw_next):
+        metrics, next_views = step(views, raw_next)
+        seen.append({k: v.clone() for k, v in metrics.items()})
+        return metrics, next_views
+
+    trainer.step = recorded
+    try:
+        _build.launches.clear()
+        for epoch, epoch_batches in batches.items():
+            trainer.train_epoch(epoch, epoch_batches)
+        torch.cuda.synchronize()
+        counts = launched("pallas", len(seen), 0, what)
+    finally:
+        del trainer.step
+    return seen, counts
+
+
+def state_leaves(trainer, metrics) -> dict:
+    """Every piece of a run's state by name: parameters and BN statistics,
+    momentum, step counter, generator states and each step's metrics."""
+    names = [n for n, _ in trainer.state.model.named_parameters()]
+    leaves = dict(trainer.state.model.state_dict())
+    leaves.update({f"momentum of {n}": b for n, b in zip(names, trainer.state.optimizer.buffers)})
+    leaves["step counter"] = trainer.state.step
+    leaves.update({f"{k} generator state": g.get_state()
+                   for k, g in trainer.generators().items()})
+    for i, m in enumerate(metrics):
+        leaves.update({f"step {i + 1} {k}": v for k, v in m.items()})
+    return leaves
+
+
+def differences(a: dict, b: dict) -> list:
+    """(name, largest |difference|) of every leaf of ``a`` not bit-identical
+    to ``b``'s, the largest first."""
+    import torch
+
+    out = []
+    for k, x in a.items():
+        y = b[k]
+        if x.shape != y.shape or x.dtype != y.dtype:
+            out.append((k, math.inf))
+        elif not torch.equal(x, y):
+            out.append((k, (x.double() - y.double()).abs().max().item()))
+    return sorted(out, key=lambda kv: -kv[1])
+
+
+def replay_loop(trainer, batches: list, steps: int) -> list:
+    """``steps`` pipelined steps of ``trainer`` on device-resident batches
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any synchronising
+    call raises; the mode is reset after); returns the host's seconds per
+    step (the call's return: what the host spends to enqueue or replay)."""
+    import torch
+
+    views = trainer.aug_fn(trainer.aug_gen, batches[0])
+    torch.cuda.synchronize()
+    host = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            _, views = trainer.step(views, batches[(i + 1) % len(batches)])
+            host.append(time.perf_counter() - t0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return host
+
+
+def graph_identity(amp: bool, tmp: str) -> dict:
+    """Phase 10: from one initial state and seed, two epochs (a new LR in
+    the second; each ending in the step-only program) on the eager loop and
+    on the graphs; every parameter, BN statistic, momentum, the step
+    counter, both generators' states and every step's metrics must be
+    bit-identical, and the launch counts those of the steps.  Then each
+    trainer's replay loop under the sync-debug mode, timing the host."""
+    batches = graph_batches(seed=20)
+    label = "--amp" if amp else "f32"
+    eager = graph_trainer(amp, os.path.join(tmp, "eager"), cuda_graph=False)
+    graph = graph_trainer(amp, os.path.join(tmp, "graph"), cuda_graph=True)
+    m_eager, counts_eager = run_epochs(eager, batches, f"eager loop {label}")
+    m_graph, counts = run_epochs(graph, batches, f"graph replays {label}")
+    diffs = differences(state_leaves(eager, m_eager), state_leaves(graph, m_graph))
+    if diffs:
+        raise AssertionError(
+            f"{label}: the graph replays differ from the eager loop in {len(diffs)} "
+            f"leaves; largest first: " + ", ".join(f"{k} ({d:.3e})" for k, d in diffs[:12]))
+    host_eager = replay_loop(eager, batches[0], SYNC_STEPS)
+    host_graph = replay_loop(graph, batches[0], SYNC_STEPS)
+    for t in (eager, graph):
+        t.logger.close()
+    return {"steps": len(m_graph), "leaves": len(state_leaves(graph, m_graph)),
+            "counts": counts, "eager_counts": counts_eager,
+            "graphs": len(graph.captured.graphs),
+            "capture_s": list(graph.captured.capture_s.values()),
+            "losses": [float(m["loss"]) for m in m_graph],
+            "host_s_eager": host_eager, "host_s_graph": host_graph}
+
+
+class _Interrupted(Exception):
+    pass
+
+
+class _StopAt:
+    """``inner``'s epochs, but the run stops at the start of epoch ``at``."""
+
+    def __init__(self, inner, at: int):
+        self.inner, self.at = inner, at
+
+    def epoch(self, epoch: int):
+        if epoch == self.at:
+            raise _Interrupted
+        return self.inner.epoch(epoch)
+
+
+def graph_resume_check(tmp: str) -> dict:
+    """Phase 10: epochs 0-2 on the graphs (``--amp``, 3 steps an epoch,
+    the state saved every epoch) against epoch 0, a stop at the start of
+    epoch 1, and a resume from the saved state on a model from another
+    seed: parameters, BN statistics, momentum, step counter, generators and
+    the logged losses equal bit for bit."""
+    from pcrlv2_tpu_torch.cli.main import SyntheticLoader
+    from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY
+    from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.train.trainer import TrainConfig, run_training
+
+    loader = SyntheticLoader(BATCH, 3, seed=11)
+
+    def run(out, seed, loader, resume=None):
+        cfg = TrainConfig(b=BATCH, epochs=2, log_every=1, save_every=1, seed=3, amp=True,
+                          output=os.path.join(tmp, out), resume=resume)
+        model = PCRLv23d(policy=DEFAULT_POLICY, seed=seed, device="cuda")
+        return run_training(model, cfg, loader, make_luna_aug_fn(), "cuda")
+
+    straight = run("a", 7, loader)
+    try:
+        run("b", 7, _StopAt(loader, 1))
+        raise AssertionError("the interrupted run did not stop")
+    except _Interrupted:
+        pass
+    resumed = run("b", 8, loader, resume=os.path.join(tmp, "b", "train_state"))
+    diffs = differences(state_leaves(straight, []), state_leaves(resumed, []))
+    losses = {d: [(r["epoch"], r["iter"], r["loss"]) for r in map(
+        json.loads, open(os.path.join(tmp, d, "metrics.jsonl"))) if "iter" in r]
+        for d in ("a", "b")}
+    if diffs or losses["a"] != losses["b"] or int(resumed.state.step) != 9:
+        raise AssertionError(f"resumed graph run vs unbroken: {diffs[:12]}, losses "
+                             f"{losses}, step {int(resumed.state.step)}")
+    return {"steps": int(resumed.state.step), "graphs": len(resumed.captured.graphs),
+            "losses": [x[2] for x in losses["a"]]}
+
+
 def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
     """One kernel of the kernels line, from its summary ``s``.  ``bf16_ms``,
     ``bf16_bound_ms`` and ``bf16_library_ms`` are its bf16 sums; the tools'
@@ -1111,23 +1358,37 @@ def main() -> int:
                   f"losses {[round(x, 5) for x in r['losses']]}, peak "
                   f"{r['peak_mem_gib']:.2f} GiB", flush=True)
 
-        for name, amp in (("f32_log10", False), ("amp_log10", True)):
+        for name, selector, amp in EAGER_RUNS:
             with tempfile.TemporaryDirectory() as tmp:
-                runs[name] = r = run_cli("pallas", amp, tmp, LONG_STEPS, LOG_EVERY)
-            print(f"[6] CLI PCRL_CONV3D=pallas{' --amp' if amp else ''} --log_every "
-                  f"{LOG_EVERY}, {LONG_STEPS} steps: window step s "
-                  f"{[round(s, 4) for s in r['step_s']]} (mean of windows 2-3: "
-                  f"{r['step_s_median']:.4f}), losses {[round(x, 5) for x in r['losses']]}",
-                  flush=True)
+                runs["eager_" + name] = r = run_cli(selector, amp, tmp, cuda_graph=False)
+            g = runs[name]
+            print(f"[6] CLI PCRL_CONV3D={selector}{' --amp' if amp else ''} on the eager "
+                  f"loop: step s {[round(s, 4) for s in r['step_s']]} (median after "
+                  f"{WARMUP}: {r['step_s_median']:.4f}; graphs {g['step_s_median']:.4f}, "
+                  f"their captures {[round(c, 4) for c in g['capture_s']]} s), peak "
+                  f"{r['peak_mem_gib']:.2f} GiB (graphs {g['peak_mem_gib']:.2f})", flush=True)
+
+        for name, selector, amp in EAGER_RUNS:
+            for graphs in (True, False):
+                key = ("" if graphs else "eager_") + name + "_log10"
+                with tempfile.TemporaryDirectory() as tmp:
+                    runs[key] = r = run_cli(selector, amp, tmp, LONG_STEPS, LOG_EVERY,
+                                            cuda_graph=graphs)
+                print(f"[6] CLI PCRL_CONV3D={selector}{' --amp' if amp else ''} --log_every "
+                      f"{LOG_EVERY}, {LONG_STEPS} steps, {'graphs' if graphs else 'eager'}: "
+                      f"window step s {[round(s, 4) for s in r['step_s']]} (mean of windows "
+                      f"2-3: {r['step_s_median']:.4f}), losses "
+                      f"{[round(x, 5) for x in r['losses']]}", flush=True)
         sync = sync_free_step()
         print(f"[6] one train step under set_sync_debug_mode('error'): no sync; loss "
               f"{sync['loss']:.5f}, host {sync['host_s']:.4f} s to enqueue", flush=True)
 
         profiles = {}
-        for name, selector, amp in RUNS:
+        for name, selector, amp in RUNS + [("eager_" + n, sel, a) for n, sel, a in EAGER_RUNS]:
             with tempfile.TemporaryDirectory() as tmp, conv_selector(selector):
-                profiles[name] = p = profile_cli(cli_argv(amp, tmp, WARMUP + PROFILED + 1),
-                                                 runs[name]["step_s_median"])
+                profiles[name] = p = profile_cli(cli_argv(amp, tmp, PROFILE_STEPS),
+                                                 runs[name]["step_s_median"],
+                                                 cuda_graph=not name.startswith("eager_"))
             print_profile(name, p)
             slab = p["slab_kernels"]
             if amp and selector != "pallas" and not (slab and all("_mma" in k for k in slab)):
@@ -1191,6 +1452,27 @@ def main() -> int:
         tools["phase_s"] = time.perf_counter() - t9
         print(f"[9] phase 9 took {tools['phase_s']:.1f} s", flush=True)
 
+        print("[10] the pipelined step as CUDA graphs against the eager loop", flush=True)
+        t10 = time.perf_counter()
+        graph = {}
+        with tempfile.TemporaryDirectory() as tmp, conv_selector("pallas"):
+            for name, amp in (("f32", False), ("amp", True)):
+                graph[name] = g = graph_identity(amp, os.path.join(tmp, name))
+                print(f"[10] {name}: {g['steps']} steps over two epochs (a new LR in the "
+                      f"second), {g['graphs']} graphs, captured in "
+                      f"{[round(c, 4) for c in g['capture_s']]} s: all {g['leaves']} leaves "
+                      f"(parameters, BN statistics, momentum, step counter, generators, "
+                      f"metrics) bit-identical to the eager loop; launches {g['counts']}; "
+                      f"then {SYNC_STEPS} steps under set_sync_debug_mode('error'), host s a "
+                      f"step: eager {[round(x, 4) for x in g['host_s_eager']]}, graph "
+                      f"{[round(x, 5) for x in g['host_s_graph']]}", flush=True)
+            graph["resume"] = r = graph_resume_check(os.path.join(tmp, "resume"))
+            print(f"[10] --amp on the graphs, saved after epoch 0 and resumed: equal to the "
+                  f"unbroken run after {r['steps']} steps ({r['graphs']} graphs in the "
+                  f"resumed run)", flush=True)
+        graph["phase_s"] = time.perf_counter() - t10
+        print(f"[10] phase 10 took {graph['phase_s']:.1f} s", flush=True)
+
         kernels = [kernel_entry(name, src, replaces, runs[LAUNCHED_IN[name]]["counts"][name],
                                 summary[name]) for name, (src, replaces) in KERNELS.items()]
         kernels += [kernel_entry(name, src, replaces, tools["counts"][name], tool_summary[name])
@@ -1202,7 +1484,8 @@ def main() -> int:
                        "model_check": {"f32_max_abs_err": err, "bf16": bf16_model},
                        "runs": runs, "sync_free_step": sync, "profiles": profiles,
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
-                       "tool_odd_rows": tool_odd_rows, "tool_summary": tool_summary}, fh,
+                       "tool_odd_rows": tool_odd_rows, "tool_summary": tool_summary,
+                       "graph": graph}, fh,
                       indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1
         traceback.print_exc()

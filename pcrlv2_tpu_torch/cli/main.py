@@ -3,14 +3,16 @@ and ``pcrlv2_tpu/cli/main.py``).
 
     PCRL_CONV3D=packed python -m pcrlv2_tpu_torch.cli.main --d 3 --n luna \
         --phase pretask --data <processed tree> [--eval_every 1] \
-        [--save_every 1] [--resume <output>/train_state] [--amp] [--device cpu]
+        [--save_every 1] [--resume <output>/train_state] [--amp] [--device cpu] \
+        [--profile_dir <dir>]
     python -m pcrlv2_tpu_torch.cli.main --synthetic --d 3 [--b 4 --epochs 0 \
         --steps_per_epoch 3]
 
 Runs 3D LUNA pretraining on one CUDA device (``--device cpu`` only when
-asked).  ``PCRL_CONV3D`` (``pallas``, the default, ``packed`` or ``im2col``)
-picks the 3³ conv kernels.  Paths not ported yet stop with the ROADMAP item
-that ports them.
+asked), each step after the first a CUDA graph replay (``train/trainer.py``).
+``PCRL_CONV3D`` (``pallas``, the default, ``packed`` or ``im2col``) picks the
+3³ conv kernels; the graphs keep the kernels they captured.  Paths not
+ported yet stop with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cap of batches per epoch (synthetic data: "
                              "batches per epoch, default 4)")
     parser.add_argument("--log_every", default=10, type=int)
+    parser.add_argument("--profile_dir", default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the run here")
     parser.add_argument("--resume", default=None, metavar="DIR",
                         help="train-state directory to continue from "
                              "(<output>/train_state of an earlier run)")
@@ -181,7 +185,8 @@ def prepare(argv=None):
                       weight_decay=args.weight_decay, seed=args.seed,
                       amp=args.amp, log_every=args.log_every,
                       eval_every=args.eval_every, eval_batches=args.eval_batches,
-                      save_every=args.save_every, resume=args.resume)
+                      save_every=args.save_every, resume=args.resume,
+                      profile_dir=args.profile_dir)
     if args.synthetic:
         loaders = {"train": SyntheticLoader(args.b, args.steps_per_epoch or 4, args.seed),
                    "eval": None}
@@ -193,11 +198,12 @@ def prepare(argv=None):
     return model, cfg, loaders, make_luna_aug_fn(), device
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Train as ``argv`` says; returns the ``Trainer``."""
     model, cfg, loaders, aug_fn, device = prepare(argv)
     print(f"training pcrlv2 3d on {device}")
-    run_training(model, cfg, loaders["train"], aug_fn, device,
-                 eval_loader=loaders["eval"])
+    return run_training(model, cfg, loaders["train"], aug_fn, device,
+                        eval_loader=loaders["eval"])
 
 
 if __name__ == "__main__":

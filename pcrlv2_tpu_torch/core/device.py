@@ -19,3 +19,13 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' (CLI: "
             "--device cpu) to run on the CPU")
     return dev
+
+
+def on_device(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """``value`` as a tensor on ``device``: a tensor as it is; a Python
+    number or list as a ``dtype`` tensor copied there without waiting for
+    the device (a step's inputs: the trainer passes device tensors, callers
+    and tests may pass numbers)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.tensor(value, dtype=dtype).to(device, non_blocking=True)

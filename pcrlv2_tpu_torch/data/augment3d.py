@@ -117,8 +117,10 @@ def random_spatial(gen: torch.Generator, img: torch.Tensor, degrees: float = 10.
     angles = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * degrees
     scale = scales[0] + (scales[1] - scales[0]) * torch.rand(
         n, 3, generator=gen, device=dev)
-    m = rotation_matrix(angles * (math.pi / 180.0)) * scale[:, None, :]
-    return affine_shear(img, torch.linalg.inv(m))
+    # M = R·diag(scale), so M⁻¹ = diag(1/scale)·Rᵀ: no solver (on the card
+    # ``torch.linalg.inv`` reads its error flags back to the host)
+    rot = rotation_matrix(angles * (math.pi / 180.0))
+    return affine_shear(img, rot.transpose(1, 2) / scale[:, :, None])
 
 
 # ---------------------------------------------------------------------------

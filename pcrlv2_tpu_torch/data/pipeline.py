@@ -85,6 +85,12 @@ class HostLoader:
 # ---------------------------------------------------------------------------
 
 
+#: held by ``device_prefetch``'s worker while it pins, allocates and copies a
+#: batch; whoever captures a CUDA graph holds it for the capture, so the
+#: worker's CUDA calls never overlap one
+CUDA_CALLS = threading.Lock()
+
+
 def device_prefetch(batches: Iterator[dict], device,
                     buffer_size: int = 2) -> Iterator[dict]:
     """Yield each host batch (a dict of arrays) as tensors on ``device``,
@@ -97,8 +103,9 @@ def device_prefetch(batches: Iterator[dict], device,
     waits on the event recorded after its copy, and every tensor is
     ``record_stream``-ed to that stream, so the caching allocator cannot
     give its memory out again while the consumer may still read it.  An
-    error in the worker is raised in the consumer.  On the CPU the batches
-    pass through as tensors that share the arrays' memory."""
+    error in the worker is raised in the consumer.  The worker makes its
+    CUDA calls holding ``CUDA_CALLS``.  On the CPU the batches pass through
+    as tensors that share the arrays' memory."""
     device = torch.device(device)
     if device.type != "cuda":
         for batch in batches:
@@ -124,10 +131,11 @@ def device_prefetch(batches: Iterator[dict], device,
         try:
             with torch.cuda.device(device), torch.cuda.stream(stream):
                 for batch in batches:
-                    moved = {k: torch.as_tensor(v).pin_memory().to(device, non_blocking=True)
-                             for k, v in batch.items()}
-                    ready = torch.cuda.Event()
-                    ready.record(stream)
+                    with CUDA_CALLS:
+                        moved = {k: torch.as_tensor(v).pin_memory().to(device, non_blocking=True)
+                                 for k, v in batch.items()}
+                        ready = torch.cuda.Event()
+                        ready.record(stream)
                     if not put((moved, ready)):
                         break
         except BaseException as err:  # noqa: BLE001 — raised in the consumer

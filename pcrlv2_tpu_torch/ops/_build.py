@@ -14,6 +14,7 @@ the input checks, ctypes binding and the launch counters.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -36,10 +37,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 #: launches per kernel wrapper since the last ``launches.clear()``; each
-#: wrapper adds one where it launches its kernel on the card, and nowhere else
+#: wrapper adds one where it launches its kernel on the card, and nowhere else.
+#: Inside ``capturing()`` the wrappers count into the graph's own counter
+#: instead (a captured launch runs at each replay, not then); whoever replays
+#: the graph adds that counter here once per replay.
 launches: collections.Counter = collections.Counter()
 
 _LIBS: dict = {}
+
+
+@contextlib.contextmanager
+def capturing():
+    """Count the launches made inside into a new counter, which it yields:
+    the launches a CUDA graph captures (``launches`` is rebound for the
+    duration, for every thread; the wrappers read it at each call)."""
+    global launches
+    outer = launches
+    launches = collections.Counter()
+    try:
+        yield launches
+    finally:
+        launches = outer
 
 
 def _nvcc() -> str:

@@ -9,7 +9,6 @@ rather than a 17-wide sliding-window gather.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 #: fixed 17-tap kernel ≈ scipy truncate=4 at σ_max=2
@@ -27,13 +26,14 @@ def gaussian_kernel(sigma: torch.Tensor, radius: int = BLUR_RADIUS) -> torch.Ten
     return w / w.sum(dim=1, keepdim=True)
 
 
-def tap_sources(n: int, taps: int) -> np.ndarray:
+def tap_sources(n: int, taps: int, device=None) -> torch.Tensor:
     """(taps, n) source index of tap k for output o, reflect padding (scipy's
-    convention, no edge duplication) folded in."""
+    convention, no edge duplication) folded in; built on ``device`` from
+    ``arange`` (no host copy, so a CUDA graph can capture it)."""
     r = (taps - 1) // 2
-    o = np.arange(n)
-    src = np.abs(o[None, :] - r + np.arange(taps)[:, None])
-    src = np.where(src >= n, 2 * (n - 1) - src, src)
+    o = torch.arange(n, device=device)
+    src = torch.abs(o[None, :] - r + torch.arange(taps, device=device)[:, None])
+    src = torch.where(src >= n, 2 * (n - 1) - src, src)
     # axes shorter than the radius + 1 reflect past the far edge to −1…;
     # wrap those the way the JAX package's indexed add does
     return src % n
@@ -42,7 +42,7 @@ def tap_sources(n: int, taps: int) -> np.ndarray:
 def band_matrix(n: int, kernel: torch.Tensor) -> torch.Tensor:
     """(N, taps) kernels → (N, n, n) operators ``W[o, s] = Σ_k kernel[k]·[src_k(o) == s]``."""
     taps = kernel.shape[1]
-    src = torch.as_tensor(tap_sources(n, taps), device=kernel.device)
+    src = tap_sources(n, taps, kernel.device)
     onehot = torch.zeros(taps, n, n, dtype=kernel.dtype, device=kernel.device)
     onehot.scatter_add_(2, src[:, :, None],
                         torch.ones(taps, n, 1, dtype=kernel.dtype,

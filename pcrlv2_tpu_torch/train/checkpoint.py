@@ -179,7 +179,8 @@ def save_train_state(state_dir: str, epoch: int, state,
 def load_train_state(state_dir: str, state,
                      generators: Mapping[str, torch.Generator]) -> int:
     """Restore what ``save_train_state`` wrote into ``state`` and
-    ``generators`` (in place, strict); returns the saved epoch.  Raises
+    ``generators`` (in place, strict: the step counter, parameters and
+    buffers keep their tensors); returns the saved epoch.  Raises
     ``FileNotFoundError`` when ``state_dir`` holds no state."""
     path = os.path.join(state_dir, STATE_FILE)
     if not os.path.isfile(path):
@@ -192,8 +193,8 @@ def load_train_state(state_dir: str, state,
     with torch.no_grad():
         for buf, saved in zip(state.optimizer.buffers, payload["momentum"]):
             buf.copy_(saved)
-    state.step = torch.tensor(int(payload["step"]), dtype=torch.int64,
-                              device=state.step.device)
+        # in place: a captured CUDA graph holds this tensor's address
+        state.step.fill_(int(payload["step"]))
     if set(payload["generators"]) != set(generators):
         raise ValueError(f"{path}: generators {sorted(payload['generators'])}, "
                          f"expected {sorted(generators)}")

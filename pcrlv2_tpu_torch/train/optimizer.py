@@ -3,10 +3,13 @@
 ``utils.py:101-114``).
 
 Update, with momentum m and weight decay wd, for every parameter:
-    g ← grad + wd·p;  buf ← g + m·buf;  p ← p + (−lr)·buf
+    g ← grad + wd·p;  buf ← g + m·buf;  p ← p − lr·buf
 The momentum buffers start at zero, so the first step sets ``buf = g``.
-Parameters are updated in place; ``step(lr, skip=bad)`` reverts the update
-on the device where the 0-d flag ``bad`` is true.
+``lr·buf`` and the difference are two roundings, as optax's ``−lr·trace``
+then ``p + u``; ``lr`` is a 0-d f32 tensor on the device (a float is taken
+too), so a captured step reads the epoch's rate where it lies.  Parameters
+are updated in place; ``step(lr, skip=bad)`` reverts the update on the
+device where the 0-d flag ``bad`` is true.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import math
 from typing import List
 
 import torch
+
+from pcrlv2_tpu_torch.core.device import on_device
 
 
 class SGD:
@@ -29,7 +34,7 @@ class SGD:
                         for p in self.params]
 
     @torch.no_grad()
-    def step(self, lr: float, skip: torch.Tensor | None = None) -> None:
+    def step(self, lr, skip: torch.Tensor | None = None) -> None:
         """One update in place.  With ``skip`` (a 0-d bool tensor) every
         parameter and momentum buffer keeps its old value where ``skip`` is
         true: the update is computed in full and then reverted by
@@ -46,9 +51,11 @@ class SGD:
         g = [next(g_with) if p.grad is not None else next(g_without)
              for p in self.params]
         torch._foreach_add_(g, self.buffers, alpha=self.momentum)  # g + m·buf
-        new_p = torch._foreach_add(self.params, g, alpha=-lr)
+        device = self.params[0].device
+        lr = on_device(lr, torch.float32, device)
+        new_p = torch._foreach_sub(self.params, torch._foreach_mul(g, lr))
         if skip is None:
-            skip = torch.zeros((), dtype=torch.bool, device=self.params[0].device)
+            skip = torch.zeros((), dtype=torch.bool, device=device)
         for buf, p, nb, np_ in zip(self.buffers, self.params, g, new_p):
             torch.where(skip, buf, nb, out=buf)
             torch.where(skip, p, np_, out=p)

@@ -5,11 +5,16 @@ One step: the model on x1, then x2, then the 6 local views concatenated
 view-major (rows ``[i·B:(i+1)·B]`` hold view i), with the BatchNorm running
 statistics chained through the three calls; the 4-term loss; backward; SGD.
 
-The SimSiam levels are an input: ``levels`` holds ``1 + 2·V`` indices in
-[0, 3) — the global term's level (which also selects the deep-supervision
-mask), then for each local view i the levels of its (x1, view i) and
-(x2, view i) terms.  Only the selected mask level gets a gradient, so the
-head backward runs once per step; all nine head forwards still run.
+The SimSiam levels are an input: ``levels``, a 1-D int64 tensor on the
+device, holds ``1 + 2·V`` indices in [0, 3) — the global term's level (which
+also selects the deep-supervision mask), then for each local view i the
+levels of its (x1, view i) and (x2, view i) terms.  Every level's loss is
+computed and the drawn one selected by index (``losses.select``), so a step
+launches the same kernels whatever the draw: every decoder stage runs its
+backward (the unselected ones on a gradient of exactly zero), and so do the
+three mask heads of x1.  ``lr`` (0-d f32) and ``epoch`` (0-d int64, from
+which β and the guard's warm-up flag are computed) are device tensors too.
+``train_step`` takes lists, floats and ints as well and copies them over.
 
 Finite-loss guard, as the JAX step has it (``pcrlv2_tpu/train/step.py``):
 the flag ``bad`` — a non-finite loss, or a loss above ``loss_guard`` after
@@ -23,6 +28,11 @@ int64 tensor, advances by ``~bad``.  Nothing in the step reads a value back
 to the host, so the host can queue the next step while the device runs
 this one; the metrics it returns are 0-d tensors.
 
+``pipelined_train_step`` is the port of ``make_pipelined_train_step``: it
+draws the step's levels on the device, runs the step and then the NEXT
+batch's augmentation, the JAX package's one program per step; the trainer
+captures it as a CUDA graph.
+
 Evaluation (``eval_step``, port of the JAX trainer's eval function) is the
 same loss, forward only, with BatchNorm on batch statistics as in training;
 the running statistics are restored afterwards, so it leaves the state as
@@ -31,13 +41,17 @@ it found it.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, Optional
 
 import torch
 
+from pcrlv2_tpu_torch.core.device import on_device
 from pcrlv2_tpu_torch.ops.resize import upsample_linear
-from pcrlv2_tpu_torch.train.losses import beta_schedule, cos_loss, mse_loss
+from pcrlv2_tpu_torch.train.losses import beta_schedule, cos_loss, mse_loss, select
 from pcrlv2_tpu_torch.train.optimizer import SGD
+
+#: SimSiam levels the step samples from (the three decoder stages)
+N_LEVELS = 3
 
 
 class TrainState:
@@ -61,9 +75,12 @@ def flatten_locals(locals_bv: torch.Tensor):
 
 
 def loss_fn(model: torch.nn.Module, views: Dict[str, torch.Tensor],
-            levels: Sequence[int], epoch: int, beta_period: float = 240.0):
-    """The 4-term PCRLv2 loss → ``(total, metrics)``; metrics are detached."""
+            levels, epoch, beta_period: float = 240.0):
+    """The 4-term PCRLv2 loss → ``(total, metrics)``; metrics are detached.
+    ``levels`` and ``epoch`` as ``train_step`` takes them."""
     x1, x2, gt = views["x1"], views["x2"], views["gt"]
+    levels = on_device(levels, torch.int64, x1.device)
+    epoch = on_device(epoch, torch.int64, x1.device)
     out1, feats1, masks1 = model(x1)
     _, feats2, _ = model(x2)
     local_flat, b, n_views = flatten_locals(views["locals"])
@@ -82,10 +99,11 @@ def loss_fn(model: torch.nn.Module, views: Dict[str, torch.Tensor],
     local_loss = local_loss / (2 * n_views)
 
     loss1 = mse_loss(out1, gt)
-    mask = masks1[levels[0]]
-    if mask.shape != gt.shape:  # native-resolution masks: upsample the chosen one
-        mask = upsample_linear(mask, gt.shape[1] // mask.shape[1])
-    loss4 = beta_schedule(epoch, beta_period) * mse_loss(mask, gt)
+    # native-resolution masks are upsampled to gt's size first
+    mask_mse = torch.stack([
+        mse_loss(m if m.shape == gt.shape else upsample_linear(m, gt.shape[1] // m.shape[1]),
+                 gt) for m in masks1])
+    loss4 = beta_schedule(epoch, beta_period) * select(mask_mse, levels[0])
 
     total = loss1 + loss2 + loss4 + local_loss
     metrics = {"loss": total, "mg_loss": loss1, "cos_loss": loss2,
@@ -94,12 +112,18 @@ def loss_fn(model: torch.nn.Module, views: Dict[str, torch.Tensor],
 
 
 def train_step(state: TrainState, views: Dict[str, torch.Tensor],
-               levels: Sequence[int], lr: float, epoch: int, *,
+               levels, lr, epoch, *,
                loss_guard: float | None = 1000.0, guard_warmup_epochs: int = 10,
                beta_period: float = 240.0) -> Dict:
-    """One training step in place on ``state``; returns the metrics and
-    ``skipped`` as 0-d tensors, and ``level`` (an int from ``levels``)."""
+    """One training step in place on ``state``; returns the metrics,
+    ``skipped`` and ``level`` (``levels[0]``) as 0-d tensors.  ``levels``
+    (1-D int64), ``lr`` (0-d f32) and ``epoch`` (0-d int64) are device
+    tensors, or a list, a float and an int, copied over first."""
     model = state.model
+    device = state.step.device
+    levels = on_device(levels, torch.int64, device)
+    lr = on_device(lr, torch.float32, device)
+    epoch = on_device(epoch, torch.int64, device)
     model.train()
     buffers = list(model.buffers())
     torch._foreach_copy_(state.saved_stats, buffers)
@@ -107,17 +131,44 @@ def train_step(state: TrainState, views: Dict[str, torch.Tensor],
         p.grad = None
     loss, metrics = loss_fn(model, views, levels, epoch, beta_period)
     bad = ~torch.isfinite(loss.detach())
-    if loss_guard is not None and epoch > guard_warmup_epochs:
-        bad = bad | (loss.detach() > loss_guard)
+    if loss_guard is not None:
+        bad = bad | ((loss.detach() > loss_guard) & (epoch > guard_warmup_epochs))
     loss.backward()
     state.optimizer.step(lr, skip=bad)
     with torch.no_grad():
         for buf, old in zip(buffers, state.saved_stats):
             torch.where(bad, old, buf, out=buf)
         state.step.add_(~bad)
-    metrics["level"] = int(levels[0])
+    metrics["level"] = levels[0]
     metrics["skipped"] = bad.float()
     return metrics
+
+
+def draw_levels(gen: torch.Generator, n_views: int) -> torch.Tensor:
+    """The 1 + 2·V SimSiam levels of one step, drawn on ``gen``'s device."""
+    return torch.randint(0, N_LEVELS, (1 + 2 * n_views,), generator=gen,
+                         device=gen.device)
+
+
+def pipelined_train_step(state: TrainState, views: Dict[str, torch.Tensor],
+                         raw_next: Optional[Dict[str, torch.Tensor]],
+                         aug_gen: torch.Generator, level_gen: torch.Generator,
+                         lr, epoch, *, aug_fn: Callable, **step_kwargs):
+    """The step and the NEXT batch's augmentation in one function (port of
+    ``make_pipelined_train_step``, ``pcrlv2_tpu/train/step.py:245-285``):
+    draws the levels on ``level_gen``, runs ``train_step`` on ``views``,
+    then ``aug_fn(aug_gen, raw_next)``.  Returns ``(metrics, next_views)``.
+
+    ``raw_next=None`` is the last step of an epoch: the step alone, with no
+    augmentation draws (the JAX trainer feeds the last batch as its own
+    dummy, which its stateless keys allow; the port's generators are not
+    stateless), so a pipelined run draws what the sequential ``aug_fn`` +
+    ``train_step`` loop draws, across epochs and resumes; ``next_views`` is
+    then None.  The two generators keep the draws of each in order."""
+    levels = draw_levels(level_gen, views["locals"].shape[1])
+    metrics = train_step(state, views, levels, lr, epoch, **step_kwargs)
+    next_views = None if raw_next is None else aug_fn(aug_gen, raw_next)
+    return metrics, next_views
 
 
 @torch.no_grad()

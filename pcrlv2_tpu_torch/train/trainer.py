@@ -1,21 +1,30 @@
 """Epoch loop of 3D pretraining (port of ``pcrlv2_tpu/train/trainer.py``;
 reference ``train_3d.py:42-83``): cosine LR per epoch, every loader behind
-``device_prefetch``, augmentation and one train step per batch, meters every
-``log_every`` steps, a held-out evaluation every ``eval_every`` epochs,
-reference-schema ``.pt`` checkpoints at ``epoch % 100 == 0`` or
-``epoch == 240`` named ``{model}_{n}_{phase}_{ratio}_{epoch}.pt``, and the
-train state at those epochs and every ``save_every`` epochs
-(``<output>/train_state``), from which ``resume`` continues.
+``device_prefetch``, one pipelined step per batch (the step and the next
+batch's augmentation, ``pipelined_train_step``), meters every ``log_every``
+steps, a held-out evaluation every ``eval_every`` epochs, reference-schema
+``.pt`` checkpoints at ``epoch % 100 == 0`` or ``epoch == 240`` named
+``{model}_{n}_{phase}_{ratio}_{epoch}.pt``, and the train state at those
+epochs and every ``save_every`` epochs (``<output>/train_state``), from
+which ``resume`` continues; ``profile_dir`` wraps the epochs in a
+``torch.profiler`` trace.
 
-Randomness comes from two generators seeded from ``seed``: one on the device
-for the augmentation, one on the host for the SimSiam levels; both are part
-of the train state.  Evaluation draws its levels from a generator seeded by
+On a CUDA device the pipelined step runs as CUDA graphs (``CapturedStep``),
+the port's counterpart of the JAX trainer's one jitted program a step: after
+``GRAPH_WARMUP`` eager steps, one graph launch a step plus the raw batch's
+copy into the graph's buffers; ``cuda_graph=False`` keeps the eager loop.
+On the CPU the same function runs eagerly.
+
+Randomness comes from two generators on the device, seeded from ``seed``:
+one for the augmentation, one for the SimSiam levels; both are part of the
+train state.  Evaluation draws its levels from a generator seeded by
 (seed, batch index), so it is the same on every pass.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import time
 from dataclasses import dataclass
@@ -25,15 +34,18 @@ import numpy as np
 import torch
 
 from pcrlv2_tpu_torch.core.device import resolve_device
-from pcrlv2_tpu_torch.data.pipeline import device_prefetch
+from pcrlv2_tpu_torch.data.pipeline import CUDA_CALLS, device_prefetch
+from pcrlv2_tpu_torch.ops import _build
 from pcrlv2_tpu_torch.train.checkpoint import (export_pcrlv23d, load_train_state,
                                                save_train_state)
 from pcrlv2_tpu_torch.train.optimizer import cosine_lr
-from pcrlv2_tpu_torch.train.step import TrainState, eval_step, train_step
+from pcrlv2_tpu_torch.train.step import N_LEVELS, TrainState, eval_step, pipelined_train_step
 from pcrlv2_tpu_torch.utils.meters import AverageMeter, MetricLogger
 
-#: SimSiam levels the step samples from (the three decoder stages)
-N_LEVELS = 3
+#: eager steps before the first capture: the first step builds and binds the
+#: kernels and starts cuBLAS and autograd's device thread, none of which a
+#: capture can do
+GRAPH_WARMUP = 1
 _LOSSES = ("cos_loss", "mg_loss", "local_loss", "loss")
 
 
@@ -58,6 +70,7 @@ class TrainConfig:
     eval_batches: int = 0  # cap of batches per eval pass; 0 = the whole fold
     save_every: int = 0    # train-state cadence besides the reference epochs
     resume: Optional[str] = None  # train-state directory to continue from
+    profile_dir: Optional[str] = None  # a torch.profiler trace of the run goes here
 
     def __post_init__(self):
         self.log_every = max(1, int(self.log_every))
@@ -89,43 +102,180 @@ def eval_levels(seed: int, index: int, n_views: int) -> list:
     return torch.randint(0, N_LEVELS, (1 + 2 * n_views,), generator=gen).tolist()
 
 
+def level_seed(seed: int) -> int:
+    """The seed of the training levels' generator: a stream of ``seed``
+    apart from the augmentation's and the eval levels'."""
+    return int(np.random.SeedSequence(seed % 2 ** 32, spawn_key=(1,)).generate_state(1)[0])
+
+
+def _signature(tensors: dict) -> tuple:
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(tensors.items()))
+
+
+@dataclass
+class _Graph:
+    graph: "torch.cuda.CUDAGraph"
+    batch: Optional[dict]  # the raw batch's buffers (None: the step-only graph)
+    metrics: dict
+    next_views: Optional[dict]
+    launches: dict  # kernel launches of one replay
+
+
+class CapturedStep:
+    """``step_fn(views, batch) → (metrics, next_views)`` as CUDA graphs, one
+    per shapes and dtypes of its inputs, each captured at its first call and
+    replayed at every call.
+
+    A graph reads its views and raw batch from buffers of its own, filled by
+    a copy before each replay (none for views that are its own last output);
+    ``step_fn`` reads anything else it needs (the epoch's ``lr`` and
+    ``epoch``) from tensors its owner fills.  Where the next views have the
+    views' shapes, the graph copies them over its input views at its end, so
+    the next replay finds them there.  ``batch=None`` (an epoch's last step)
+    is the step-only graph.
+
+    All graphs share one memory pool: they never run at once, and what a
+    replay leaves for later lies outside the pool (parameters, statistics,
+    momentum, step counter, the input buffers) or is read before the next
+    replay (the metrics, and the next views of a graph whose output shapes
+    differ from its inputs').  ``generators`` are registered with each graph,
+    so a replay advances them as the eager step does.  A capture holds
+    ``CUDA_CALLS``, so ``device_prefetch``'s worker makes no CUDA call
+    meanwhile, runs in ``thread_local`` mode (another thread's CUDA call
+    does not end it) and with the garbage collector off (collected first).  A graph
+    keeps the kernel launches its capture made and adds them to
+    ``_build.launches`` at every replay.  A failed capture or replay raises."""
+
+    def __init__(self, step_fn, generators):
+        self.step_fn = step_fn
+        self.generators = list(generators)
+        self.pool = None
+        self.graphs: dict = {}
+        self.views: dict = {}  # views' signature → the graphs' input views
+        #: seconds each capture took, by signature
+        self.capture_s: dict = {}
+
+    def __call__(self, views: dict, batch: Optional[dict]):
+        vkey = _signature(views)
+        key = (vkey, None if batch is None else _signature(batch))
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self.graphs[key] = self._capture(views, batch, key)
+        inputs = self.views[vkey]
+        if views is not inputs:
+            for k, v in views.items():
+                inputs[k].copy_(v)
+        if batch is not None:
+            for k, v in batch.items():
+                entry.batch[k].copy_(v)
+        entry.graph.replay()
+        _build.launches.update(entry.launches)
+        return entry.metrics, entry.next_views
+
+    def _capture(self, views: dict, batch: Optional[dict], key) -> _Graph:
+        t0 = time.perf_counter()
+        inputs = self.views.get(key[0])
+        if inputs is None:
+            inputs = self.views[key[0]] = {k: torch.empty_like(v) for k, v in views.items()}
+        batch_in = None if batch is None else {k: torch.empty_like(v) for k, v in batch.items()}
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        # destroying a graph (a dead trainer's, collected) is a call a capture
+        # forbids: collect before, and keep the collector off until it ends
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with CUDA_CALLS, _build.capturing() as launches, torch.cuda.graph(
+                    graph, pool=self.pool, capture_error_mode="thread_local"):
+                metrics, next_views = self.step_fn(inputs, batch_in)
+                if next_views is not None and _signature(next_views) == key[0]:
+                    for k, v in next_views.items():
+                        inputs[k].copy_(v)
+                    next_views = inputs
+        finally:
+            if collecting:
+                gc.enable()
+        self.capture_s[key] = time.perf_counter() - t0
+        return _Graph(graph, batch_in, metrics, next_views, dict(launches))
+
+
+def _step_fn(state: TrainState, aug_gen, level_gen, lr, epoch, aug_fn):
+    """``pipelined_train_step`` on these as ``fn(views, raw_next)``.  It holds
+    no reference to the trainer, so a trainer no longer used is freed, its
+    graphs with it, as soon as its last reference goes."""
+    def step(views: dict, raw_next: Optional[dict]):
+        return pipelined_train_step(state, views, raw_next, aug_gen, level_gen, lr, epoch,
+                                    aug_fn=aug_fn)
+    return step
+
+
 class Trainer:
-    """Drives the train step over epochs on ``device`` (default: CUDA)."""
+    """Drives the pipelined step over epochs on ``device`` (default: CUDA),
+    there as CUDA graphs unless ``cuda_graph=False``."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig, aug_fn,
-                 device=None):
+                 device=None, cuda_graph: bool = True):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.state = TrainState(model, cfg.momentum, cfg.weight_decay)
         self.aug_fn = aug_fn
         self.aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        self.level_gen = torch.Generator().manual_seed(cfg.seed)
+        self.level_gen = torch.Generator(device=self.device).manual_seed(level_seed(cfg.seed))
+        #: the epoch's learning rate and number, filled once per epoch
+        self.lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.epoch = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._eager_step = _step_fn(self.state, self.aug_gen, self.level_gen, self.lr,
+                                    self.epoch, aug_fn)
+        self.captured = (CapturedStep(self._eager_step, self.generators().values())
+                         if cuda_graph and self.device.type == "cuda" else None)
+        self.steps_run = 0
         os.makedirs(cfg.output, exist_ok=True)
         self.logger = MetricLogger(os.path.join(cfg.output, "metrics.jsonl"))
 
     def generators(self) -> dict:
         return {"aug": self.aug_gen, "level": self.level_gen}
 
-    def draw_levels(self, n_views: int) -> list:
-        """The 1 + 2·V SimSiam levels of one step."""
-        return torch.randint(0, N_LEVELS, (1 + 2 * n_views,),
-                             generator=self.level_gen).tolist()
+    def to_device(self, raw: dict) -> dict:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in raw.items()}
+
+    def step(self, views: dict, raw_next) -> tuple:
+        """One step on ``views`` that also augments ``raw_next`` (None for an
+        epoch's last step) → ``(metrics, next_views)``: a graph replay after
+        the first ``GRAPH_WARMUP`` steps on a CUDA device, else eager."""
+        batch = None if raw_next is None else self.to_device(raw_next)
+        if self.captured is None or self.steps_run < GRAPH_WARMUP:
+            out = self._eager_step(views, batch)
+        else:
+            out = self.captured(views, batch)
+        self.steps_run += 1
+        return out
 
     def train_epoch(self, epoch: int, batch_iter) -> dict:
         cfg = self.cfg
         lr = cosine_lr(epoch, cfg.lr, cfg.epochs)
+        self.lr.fill_(lr)
+        self.epoch.fill_(epoch)
         meters = {k: AverageMeter() for k in ("batch_time", "data_time") + _LOSSES}
         end = win_start = time.time()
+        it = iter(batch_iter)
+        raw = next(it, None)
+        # the first batch's views; each later batch is augmented by the step
+        # before it, as in the JAX trainer's pipelined program
+        views = None if raw is None else self.aug_fn(self.aug_gen, self.to_device(raw))
         idx, metrics = -1, None
-        for idx, raw in enumerate(batch_iter):
+        while views is not None:
+            idx += 1
+            raw = next(it, None)  # the batch this step augments
             meters["data_time"].update(time.time() - end)
-            batch = {k: torch.as_tensor(v).to(self.device) for k, v in raw.items()}
-            views = self.aug_fn(self.aug_gen, batch)
-            levels = self.draw_levels(views["locals"].shape[1])
             # the step returns 0-d device tensors and reads nothing back, so
             # the host runs ahead; the metrics are read (a sync) only when
-            # they are logged, as the JAX trainer does
-            metrics = train_step(self.state, views, levels, lr, epoch)
+            # they are logged, as the JAX trainer does, and before the next
+            # step (a replay) writes over them
+            metrics, views = self.step(views, raw)
             if (idx + 1) % cfg.log_every == 0:
                 for k in _LOSSES:
                     meters[k].update(float(metrics[k]), cfg.b)
@@ -155,8 +305,7 @@ class Trainer:
         for i, raw in enumerate(batch_iter):
             if max_batches and i >= max_batches:
                 break
-            views = raw_batch_to_views(
-                {k: torch.as_tensor(v).to(self.device) for k, v in raw.items()})
+            views = raw_batch_to_views(self.to_device(raw))
             levels = eval_levels(self.cfg.seed, i, views["locals"].shape[1])
             metrics = eval_step(self.state.model, views, levels)
             for k in meters:
@@ -177,38 +326,63 @@ class Trainer:
         return load_train_state(state_dir, self.state, self.generators())
 
 
+def profiled(profile_dir: Optional[str], device: torch.device):
+    """A ``torch.profiler`` context whose trace (host and, on a CUDA device,
+    device activity) is written into ``profile_dir`` as it closes (the JAX
+    trainer's ``jax.profiler.trace``); a no-op without ``profile_dir``."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
 def run_training(model: torch.nn.Module, cfg: TrainConfig, loader, aug_fn,
-                 device=None, eval_loader=None) -> Trainer:
+                 device=None, eval_loader=None, cuda_graph: bool = True) -> Trainer:
     """Epochs 0..cfg.epochs, or from the epoch after the one saved in
-    ``cfg.resume`` (reference epoch loop ``train_3d.py:60-83``; eval and
-    save cadence of the JAX trainer, ``trainer.py:419-457``)."""
-    trainer = Trainer(model, cfg, aug_fn, device)
+    ``cfg.resume`` (reference epoch loop ``train_3d.py:60-83``; eval, save
+    and profile cadence of the JAX trainer, ``trainer.py:419-457``), on a
+    ``Trainer(..., cuda_graph=cuda_graph)``; the state is restored before any
+    step, so before any capture."""
+    trainer = Trainer(model, cfg, aug_fn, device, cuda_graph)
     try:
         start = 0
         if cfg.resume:
             start = trainer.restore_state(cfg.resume) + 1
             print(f"==> resumed at epoch {start} (global step {int(trainer.state.step)})")
-        for epoch in range(start, cfg.epochs + 1):
-            print("==> training...")
-            t0 = time.time()
-            with contextlib.closing(device_prefetch(loader.epoch(epoch),
-                                                    trainer.device)) as batches:
-                stats = trainer.train_epoch(epoch, batches)
-            epoch_time = time.time() - t0
-            print(f"epoch {epoch}, total time {epoch_time:.2f}")
-            trainer.logger.log({"epoch": epoch, "epoch_time": epoch_time, **stats},
-                               console=False)
-            if eval_loader is not None and cfg.eval_every and epoch % cfg.eval_every == 0:
-                with contextlib.closing(device_prefetch(eval_loader.epoch(epoch),
-                                                        trainer.device)) as batches:
-                    ev = trainer.evaluate(batches)
-                trainer.logger.log({"epoch": epoch, "eval": ev})
-            on_ref_cadence = epoch % 100 == 0 or epoch == 240
-            if on_ref_cadence or (cfg.save_every and epoch % cfg.save_every == 0):
-                print("==> Saving...")
-                if on_ref_cadence:  # .pt files only at the reference epochs
-                    trainer.save_reference_ckpt(epoch)
-                trainer.save_state(epoch)
+        with profiled(cfg.profile_dir, trainer.device):
+            for epoch in range(start, cfg.epochs + 1):
+                run_epoch(trainer, epoch, loader, eval_loader)
     finally:
         trainer.logger.close()
     return trainer
+
+
+def run_epoch(trainer: Trainer, epoch: int, loader, eval_loader=None) -> None:
+    """One epoch of ``run_training``: train, log, evaluate and save on the
+    configured cadences."""
+    cfg = trainer.cfg
+    print("==> training...")
+    t0 = time.time()
+    with torch.profiler.record_function(f"epoch {epoch}"), contextlib.closing(
+            device_prefetch(loader.epoch(epoch), trainer.device)) as batches:
+        stats = trainer.train_epoch(epoch, batches)
+    epoch_time = time.time() - t0
+    print(f"epoch {epoch}, total time {epoch_time:.2f}")
+    trainer.logger.log({"epoch": epoch, "epoch_time": epoch_time, **stats},
+                       console=False)
+    if eval_loader is not None and cfg.eval_every and epoch % cfg.eval_every == 0:
+        with contextlib.closing(device_prefetch(eval_loader.epoch(epoch),
+                                                trainer.device)) as batches:
+            ev = trainer.evaluate(batches)
+        trainer.logger.log({"epoch": epoch, "eval": ev})
+    on_ref_cadence = epoch % 100 == 0 or epoch == 240
+    if on_ref_cadence or (cfg.save_every and epoch % cfg.save_every == 0):
+        print("==> Saving...")
+        if on_ref_cadence:  # .pt files only at the reference epochs
+            trainer.save_reference_ckpt(epoch)
+        trainer.save_state(epoch)
