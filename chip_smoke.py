@@ -54,13 +54,18 @@ Phases, any failure exits non-zero without the final line:
    must all be their tensor-core (``_mma``) ones;
 8. the disk path under ``PCRL_CONV3D=packed``, on the graphs: write a
    processed-LUNA tree (``write_synthetic_luna_tree``, 10 subsets × 2 UIDs
-   × 3 pairs, so one epoch of folds 0-6 is 10 steps at b=4), run the CLI
-   with ``--data --epochs 1 --eval_every 1 --eval_batches 2 --save_every
-   1``, then again with ``--resume <output>/train_state --epochs 2``: it
-   must resume at epoch 2, every eval loss be finite, the launch counts be
-   those of the steps and eval batches run, and the ``.pt`` load strictly;
-   step time (median of steps 4-10 of epoch 0), ``DT``, and the busy share
-   of the same path under the profiler;
+   × 3 pairs, so one epoch of folds 0-6 is 10 steps at b=4); the CLI's
+   train loader (``cli.main.prepare``) must read through the native batch
+   reader (``LunaBatchReader``; the NumPy reader fails the phase, with the
+   library's build error), and one epoch of its batches must equal the
+   NumPy reader's (``load_luna_sample``) bit for bit; then the CLI's path
+   (``prepare`` → ``run_training``) with ``--data --epochs 1 --eval_every 1
+   --eval_batches 2 --save_every 1``, then again with ``--resume
+   <output>/train_state --epochs 2``: the native reader must serve every
+   train batch of both runs, the run resume at epoch 2, every eval loss be
+   finite, the launch counts be those of the steps and eval batches run,
+   and the ``.pt`` load strictly; step time (median of steps 4-10 of epoch
+   0), ``DT``, and the busy share of the same path under the profiler;
 9. the kernel prototype tools (``pcrlv2_tpu_torch.tools``): each tool's
    ``main()`` (``proto_conv``, ``proto_co1_kernel`` ``main`` and ``main2``,
    ``probe_mosaic``) at the JAX tools' shapes (B = 32, bf16) with every
@@ -88,7 +93,23 @@ Phases, any failure exits non-zero without the final line:
    replay); then ``SYNC_STEPS`` more steps of each under
    ``torch.cuda.set_sync_debug_mode("error")``, timing the host per step;
    then a graph run (``--amp``) stopped after epoch 0 and resumed from its
-   saved state must equal the unbroken run.
+   saved state must equal the unbroken run;
+11. the rest of the 3D pretask surface: phase 10's graph identity under
+   ``--amp`` with ``--use_painting --paint_rate 1.0 --use_pixel_shuffle
+   --mixup 0.2`` (``FLAGS_IDENTITY``), bit for bit, launch counts exact;
+   the CLI (synthetic, ``--amp``, ``STEPS`` steps) with ``--use_painting
+   --use_pixel_shuffle --mixup 0.2`` and, apart, under ``PCRL_AFFINE=exact``
+   (``FLAG_RUNS``): launches exact, losses finite, step time and, under
+   the profiler, device time and device kernels a step beside phase 6-7's
+   ``amp`` run; the CLI on a structured phantom tree
+   (``write_structured_luna_tree``) with ``--data --b 4 --use_painting
+   --use_pixel_shuffle --mixup 0.2`` through the native reader; then the
+   bench (``pcrlv2_tpu_torch.tools.bench``): ``main()`` at b = 32 under
+   ``DEFAULT_POLICY`` (it takes the GPU lock, which every trainer before
+   it must have released; the script points ``PCRL_CHIP_LOCK`` at a file
+   in a temporary directory of its own for the whole run), and its timed loop (``bench.run``) at b = 32 in
+   f32 and at b = 4 in both policies, ``BENCH_RUNS`` steps and trials
+   reduced: volumes/s, the trials' spread and peak memory.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -105,7 +126,7 @@ import math
 import os
 import re
 import statistics
-import subprocess
+import shutil
 import sys
 import tempfile
 import time
@@ -475,7 +496,7 @@ def in_channels_check(in_channels: int = 2):
         model = PCRLv23d(in_channels=in_channels, seed=4, device="cuda")
         before = [p.detach().clone() for p in model.parameters()]
         state = TrainState(model)
-        with conv_selector(selector):
+        with env_var("PCRL_CONV3D", selector):
             _build.launches.clear()
             metrics = train_step(state, views, [0, 1, 2, 0, 1], lr=0.1, epoch=0)
             torch.cuda.synchronize()
@@ -626,17 +647,17 @@ def cli_argv(amp: bool, out_dir: str, steps: int, log_every: int = 1):
 
 
 @contextlib.contextmanager
-def conv_selector(value: str):
-    """``PCRL_CONV3D=value`` for the duration (the port reads it per call)."""
-    old = os.environ.get("PCRL_CONV3D")
-    os.environ["PCRL_CONV3D"] = value
+def env_var(name: str, value: str):
+    """``name=value`` in the environment for the duration."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["PCRL_CONV3D"]
+            del os.environ[name]
         else:
-            os.environ["PCRL_CONV3D"] = old
+            os.environ[name] = old
 
 
 def launched(selector: str, steps: int, eval_batches: int, what: str) -> dict:
@@ -670,12 +691,13 @@ def step_times(steps) -> list:
 
 
 def run_cli(selector: str, amp: bool, out_dir: str, steps: int = STEPS, log_every: int = 1,
-            cuda_graph: bool = True):
+            cuda_graph: bool = True, extra=()):
     """Phase 6: the port's CLI in this process, counters read around it; with
     ``cuda_graph=False`` the same path (``cli.main.prepare`` →
     ``run_training``) on the eager loop.  At ``log_every`` > 1 the logged
     rows are windows: ``step_s`` then holds each window's mean step time and
-    the step time is the mean of windows 2-3."""
+    the step time is the mean of windows 2-3.  ``extra``: more CLI flags
+    (phase 11)."""
     import torch
 
     from pcrlv2_tpu_torch.cli.main import main as cli_main
@@ -685,10 +707,10 @@ def run_cli(selector: str, amp: bool, out_dir: str, steps: int = STEPS, log_ever
     from pcrlv2_tpu_torch.train.checkpoint import import_pcrlv23d
     from pcrlv2_tpu_torch.train.trainer import run_training
 
-    argv = cli_argv(amp, out_dir, steps, log_every)
+    argv = cli_argv(amp, out_dir, steps, log_every) + list(extra)
     allocated_before = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    with conv_selector(selector):
+    with env_var("PCRL_CONV3D", selector):
         _build.launches.clear()
         t0 = time.perf_counter()
         if cuda_graph:
@@ -759,33 +781,78 @@ def sync_free_step() -> dict:
     return {"loss": loss, "host_s": host_s, "device_s": time.perf_counter() - t0}
 
 
+def native_reader(loaders: dict):
+    """The train loader's native batch reader; fails if the CLI took the
+    NumPy reader (the library's build error in the message)."""
+    from pcrlv2_tpu_torch import native
+
+    reader = loaders["train"].batch_read_fn
+    if reader is None:
+        raise AssertionError("the CLI read the tree through NumPy: the native library did "
+                             f"not load ({native.build_error()})")
+    return reader
+
+
+def reader_identity(argv) -> int:
+    """Phase 8: one epoch of the CLI's train loader through the native
+    reader against the same loader through ``load_luna_sample``, bit for
+    bit; returns the batches compared."""
+    import numpy as np
+
+    from pcrlv2_tpu_torch.cli.main import prepare
+    from pcrlv2_tpu_torch.data.pipeline import HostLoader
+
+    loaders = prepare(argv)[2]
+    train = loaders["train"]
+    reader = native_reader(loaders)
+    plain = HostLoader(train.paths, train.batch_size, train.read_fn, shuffle=train.shuffle,
+                       seed=train.seed, num_workers=train.num_workers)
+    got, want = list(train.epoch(0)), list(plain.epoch(0))
+    if len(got) != len(want) or reader.batches != len(got) or not all(
+            a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                                         for k in a) for a, b in zip(got, want)):
+        raise AssertionError(f"native reader: {len(got)} batches ({reader.batches} served) "
+                             f"differ from the NumPy reader's {len(want)}")
+    return len(got)
+
+
 def run_disk(tmp: str):
-    """Phase 8: the CLI on a processed tree under ``packed``: train, eval,
-    save, then resume from the saved train state."""
+    """Phase 8: the CLI's path (``prepare`` → ``run_training``) on a
+    processed tree under ``packed``, through the native reader: train,
+    eval, save, then resume from the saved train state."""
     import torch
 
-    from pcrlv2_tpu_torch.cli.main import main as cli_main
+    from pcrlv2_tpu_torch.cli.main import prepare
     from pcrlv2_tpu_torch.data.pipeline import write_synthetic_luna_tree
     from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
     from pcrlv2_tpu_torch.ops import _build
     from pcrlv2_tpu_torch.train.checkpoint import import_pcrlv23d
+    from pcrlv2_tpu_torch.train.trainer import run_training
 
     tree, out = os.path.join(tmp, "tree"), os.path.join(tmp, "out")
     t0 = time.perf_counter()
     write_synthetic_luna_tree(tree, n_subsets=10, uids_per_subset=2, pairs_per_uid=3)
     write_s = time.perf_counter() - t0
     argv = disk_argv(tree, out)
+    compared = reader_identity(argv + ["--epochs", "1"])
     state_dir = os.path.join(out, "train_state")
     # 42 train crops: 10 steps per epoch; the resumed run trains epoch 2 only
-    counts, runs = [], [(argv + ["--epochs", "1"], 2),
-                        (argv + ["--epochs", "2", "--resume", state_dir], 1)]
-    with conv_selector("packed"):
+    counts, served, runs = [], [], [(argv + ["--epochs", "1"], 2),
+                                    (argv + ["--epochs", "2", "--resume", state_dir], 1)]
+    with env_var("PCRL_CONV3D", "packed"):
         for run_argv, epochs in runs:
+            model, cfg, loaders, aug_fn, device = prepare(run_argv)
+            reader = native_reader(loaders)
             _build.launches.clear()
-            cli_main(run_argv)
+            run_training(model, cfg, loaders["train"], aug_fn, device,
+                         eval_loader=loaders["eval"])
             torch.cuda.synchronize()
             counts.append(launched("packed", STEPS * epochs, 2 * epochs,
                                    "disk CLI under packed"))
+            served.append(reader.batches)
+            if reader.batches != STEPS * epochs:
+                raise AssertionError(f"the native reader served {reader.batches} of "
+                                     f"{STEPS * epochs} train batches")
     rows = [json.loads(s) for s in open(os.path.join(out, "metrics.jsonl"))]
     per_epoch = {e: step_rows(os.path.join(out, "metrics.jsonl"), e)[1] for e in (0, 1, 2)}
     if [len(v) for v in per_epoch.values()] != [STEPS] * 3:
@@ -801,6 +868,7 @@ def run_disk(tmp: str):
                     PCRLv23d(device="cuda", seed=1))
     step_s = step_times(per_epoch[0])
     return {"tree_write_s": write_s, "counts": counts, "step_s": step_s,
+            "reader_batches_compared": compared, "reader_batches_served": served,
             "step_s_median": statistics.median(step_s[WARMUP:]),
             "dt_s": [r["DT"] for r in per_epoch[0]],
             "epoch0_data_time_s": next(r["data_time"] for r in rows
@@ -1091,17 +1159,20 @@ def graph_batches(seed: int) -> dict:
             for epoch, n in enumerate(GRAPH_EPOCHS)}
 
 
-def graph_trainer(amp: bool, out: str, cuda_graph: bool, seed: int = 7):
+def graph_trainer(amp: bool, out: str, cuda_graph: bool, seed: int = 7, mixup=None,
+                  **aug_flags):
     """A trainer at full width from one seed (epochs 0-2 of the cosine LR, so
-    epoch 1 runs at another rate than epoch 0)."""
+    epoch 1 runs at another rate than epoch 0); ``mixup`` and ``aug_flags``
+    (``make_luna_aug_fn``'s) as the CLI's flags set them (phase 11)."""
     from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
     from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
     from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
     from pcrlv2_tpu_torch.train.trainer import TrainConfig, Trainer
 
     model = PCRLv23d(policy=DEFAULT_POLICY if amp else PARITY_POLICY, seed=seed, device="cuda")
-    cfg = TrainConfig(b=BATCH, epochs=2, lr=1e-2, log_every=100, seed=3, amp=amp, output=out)
-    return Trainer(model, cfg, make_luna_aug_fn(), "cuda", cuda_graph=cuda_graph)
+    cfg = TrainConfig(b=BATCH, epochs=2, lr=1e-2, log_every=100, seed=3, amp=amp, output=out,
+                      mixup=mixup)
+    return Trainer(model, cfg, make_luna_aug_fn(**aug_flags), "cuda", cuda_graph=cuda_graph)
 
 
 def run_epochs(trainer, batches: dict, what: str):
@@ -1183,17 +1254,18 @@ def replay_loop(trainer, batches: list, steps: int) -> list:
     return host
 
 
-def graph_identity(amp: bool, tmp: str) -> dict:
+def graph_identity(amp: bool, tmp: str, **flags) -> dict:
     """Phase 10: from one initial state and seed, two epochs (a new LR in
     the second; each ending in the step-only program) on the eager loop and
     on the graphs; every parameter, BN statistic, momentum, the step
     counter, both generators' states and every step's metrics must be
     bit-identical, and the launch counts those of the steps.  Then each
-    trainer's replay loop under the sync-debug mode, timing the host."""
+    trainer's replay loop under the sync-debug mode, timing the host.
+    ``flags``: ``graph_trainer``'s mixup and aug flags (phase 11)."""
     batches = graph_batches(seed=20)
-    label = "--amp" if amp else "f32"
-    eager = graph_trainer(amp, os.path.join(tmp, "eager"), cuda_graph=False)
-    graph = graph_trainer(amp, os.path.join(tmp, "graph"), cuda_graph=True)
+    label = ("--amp" if amp else "f32") + "".join(f" {k}={v}" for k, v in flags.items())
+    eager = graph_trainer(amp, os.path.join(tmp, "eager"), cuda_graph=False, **flags)
+    graph = graph_trainer(amp, os.path.join(tmp, "graph"), cuda_graph=True, **flags)
     m_eager, counts_eager = run_epochs(eager, batches, f"eager loop {label}")
     m_graph, counts = run_epochs(graph, batches, f"graph replays {label}")
     diffs = differences(state_leaves(eager, m_eager), state_leaves(graph, m_graph))
@@ -1267,6 +1339,81 @@ def graph_resume_check(tmp: str) -> dict:
             "losses": [x[2] for x in losses["a"]]}
 
 
+# Phase 11: the CLI flags of the rest of the 3D pretask surface
+FLAGS = ["--use_painting", "--use_pixel_shuffle", "--mixup", "0.2"]
+#: phase 10's identity check with every flag on (painting always)
+FLAGS_IDENTITY = dict(mixup=0.2, use_painting=True, paint_rate=1.0, use_pixel_shuffle=True)
+#: (run name, extra CLI flags, PCRL_AFFINE) of phase 11's CLI runs, under
+#: ``pallas --amp`` beside phase 6's ``amp`` run
+FLAG_RUNS = [("amp_flags", FLAGS, "shear"), ("amp_exact", [], "exact")]
+#: (name, batch, bf16 policy) of phase 11's bench runs; the first through
+#: ``bench.main()``, as ``python -m pcrlv2_tpu_torch.tools.bench`` runs it
+BENCH_RUNS = [("b32_amp", 32, True), ("b32_f32", 32, False), ("b4_amp", 4, True),
+              ("b4_f32", 4, False)]
+BENCH_ENV = {"BENCH_WARMUP": "3", "BENCH_STEPS": "5", "BENCH_TRIALS": "3"}
+
+
+def flagged_disk_run(tmp: str) -> dict:
+    """Phase 11: the CLI's path with ``--data --b 4`` and ``FLAGS`` on a
+    structured phantom tree (10 subsets × 2 UIDs × 3 pairs: 10 steps at
+    b = 4), one epoch through the native reader; losses finite, launches
+    exact."""
+    import torch
+
+    from pcrlv2_tpu_torch.cli.main import prepare
+    from pcrlv2_tpu_torch.data.pipeline import write_structured_luna_tree
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.train.trainer import run_training
+
+    tree, out = os.path.join(tmp, "tree"), os.path.join(tmp, "out")
+    write_structured_luna_tree(tree, n_subsets=10, uids_per_subset=2, pairs_per_uid=3)
+    argv = ["--data", tree, "--d", "3", "--b", str(BATCH), "--epochs", "0", "--log_every", "1",
+            "--seed", "0", "--output", out] + FLAGS
+    model, cfg, loaders, aug_fn, device = prepare(argv)
+    reader = native_reader(loaders)
+    steps = len(loaders["train"])
+    _build.launches.clear()
+    run_training(model, cfg, loaders["train"], aug_fn, device)
+    torch.cuda.synchronize()
+    counts = launched("pallas", steps, 0, "flagged disk CLI")
+    _, rows = step_rows(os.path.join(out, "metrics.jsonl"))
+    if len(rows) != steps or reader.batches != steps:
+        raise AssertionError(f"{len(rows)} steps logged, {reader.batches} batches read, "
+                             f"{steps} in the epoch")
+    return {"counts": counts, "losses": [r["loss"] for r in rows],
+            "step_s": step_times(rows), "dt_s": [r["DT"] for r in rows]}
+
+
+def run_bench() -> dict:
+    """Phase 11: the bench at ``BENCH_RUNS``, the trainers' memory freed
+    first; ``bench.main()`` takes the GPU lock."""
+    import gc
+
+    import torch
+
+    from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from pcrlv2_tpu_torch.data.pipeline import synthetic_luna_batch
+    from pcrlv2_tpu_torch.tools import bench
+
+    out = {}
+    for name, batch, amp in BENCH_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if name == "b32_amp":
+            with contextlib.ExitStack() as env:
+                for k, v in {**BENCH_ENV, "BENCH_BATCH": str(batch)}.items():
+                    env.enter_context(env_var(k, v))
+                r = bench.main()
+        else:
+            r = bench.run(synthetic_luna_batch(batch), DEFAULT_POLICY if amp else PARITY_POLICY,
+                          warmup=int(BENCH_ENV["BENCH_WARMUP"]),
+                          steps=int(BENCH_ENV["BENCH_STEPS"]),
+                          trials=int(BENCH_ENV["BENCH_TRIALS"]), device="cuda")
+        out[name] = dict(r, wall_s=time.perf_counter() - t0)
+    return out
+
+
 def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
     """One kernel of the kernels line, from its summary ``s``.  ``bf16_ms``,
     ``bf16_bound_ms`` and ``bf16_library_ms`` are its bf16 sums; the tools'
@@ -1303,11 +1450,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
+    # the trainers and the bench take the GPU lock: keep it on this run's
+    # own ground, where no other run meets it
+    lock_dir = tempfile.mkdtemp(prefix="chip_smoke_lock_")
+    os.environ["PCRL_CHIP_LOCK"] = os.path.join(lock_dir, "gpu.lock")
     try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60, check=True).stdout.strip()
-        card = smi.splitlines()[0]
+        from pcrlv2_tpu_torch.tools.bench import device_label
+        card = device_label(torch.device("cuda", 0))
+        if card.endswith("power limit not read"):
+            raise RuntimeError(f"nvidia-smi could not be read ({card})")
         print(f"[1] card: {card}", flush=True)
 
         t0 = time.perf_counter()
@@ -1385,7 +1536,7 @@ def main() -> int:
 
         profiles = {}
         for name, selector, amp in RUNS + [("eager_" + n, sel, a) for n, sel, a in EAGER_RUNS]:
-            with tempfile.TemporaryDirectory() as tmp, conv_selector(selector):
+            with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", selector):
                 profiles[name] = p = profile_cli(cli_argv(amp, tmp, PROFILE_STEPS),
                                                  runs[name]["step_s_median"],
                                                  cuda_graph=not name.startswith("eager_"))
@@ -1396,12 +1547,14 @@ def main() -> int:
 
         with tempfile.TemporaryDirectory() as tmp:
             runs["disk"] = d = run_disk(tmp)
-            with conv_selector("packed"):
+            with env_var("PCRL_CONV3D", "packed"):
                 profiles["disk"] = p = profile_cli(
                     disk_argv(d.pop("tree"), os.path.join(tmp, "prof")) + ["--epochs", "0"],
                     d["step_s_median"])
-        print(f"[8] disk CLI under packed: trained, evaluated and saved epochs 0-1, "
-              f"resumed at epoch 2; launches {d['counts']}; epoch-0 step s "
+        print(f"[8] disk CLI under packed: native reader, one epoch ("
+              f"{d['reader_batches_compared']} batches) bit-equal to the NumPy reader's, "
+              f"{d['reader_batches_served']} train batches served; trained, evaluated and "
+              f"saved epochs 0-1, resumed at epoch 2; launches {d['counts']}; epoch-0 step s "
               f"{[round(s, 4) for s in d['step_s']]} (median after {WARMUP}: "
               f"{d['step_s_median']:.4f}), DT {[round(s, 4) for s in d['dt_s']]} "
               f"(epoch mean {d['epoch0_data_time_s']:.4f}); eval losses "
@@ -1455,7 +1608,7 @@ def main() -> int:
         print("[10] the pipelined step as CUDA graphs against the eager loop", flush=True)
         t10 = time.perf_counter()
         graph = {}
-        with tempfile.TemporaryDirectory() as tmp, conv_selector("pallas"):
+        with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
             for name, amp in (("f32", False), ("amp", True)):
                 graph[name] = g = graph_identity(amp, os.path.join(tmp, name))
                 print(f"[10] {name}: {g['steps']} steps over two epochs (a new LR in the "
@@ -1473,6 +1626,43 @@ def main() -> int:
         graph["phase_s"] = time.perf_counter() - t10
         print(f"[10] phase 10 took {graph['phase_s']:.1f} s", flush=True)
 
+        print("[11] the rest of the 3D pretask surface", flush=True)
+        t11 = time.perf_counter()
+        surface = {}
+        with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+            surface["identity"] = g = graph_identity(True, tmp, **FLAGS_IDENTITY)
+        print(f"[11] --amp {' '.join(f'{k}={v}' for k, v in FLAGS_IDENTITY.items())}: "
+              f"{g['steps']} steps, {g['graphs']} graphs: all {g['leaves']} leaves bit-identical "
+              f"to the eager loop; launches {g['counts']}; losses "
+              f"{[round(x, 5) for x in g['losses']]}", flush=True)
+        for name, extra, affine in FLAG_RUNS:
+            with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_AFFINE", affine):
+                runs[name] = r = run_cli("pallas", True, tmp, extra=extra)
+                with env_var("PCRL_CONV3D", "pallas"):
+                    profiles[name] = p = profile_cli(
+                        cli_argv(True, os.path.join(tmp, "prof"), PROFILE_STEPS) + extra,
+                        r["step_s_median"])
+            print(f"[11] CLI --amp {' '.join(extra)} PCRL_AFFINE={affine}: launches "
+                  f"{ {k: v / STEPS for k, v in r['counts'].items()} } per step, step s "
+                  f"{[round(x, 4) for x in r['step_s']]} (median after {WARMUP}: "
+                  f"{r['step_s_median']:.4f}; without: {runs['amp']['step_s_median']:.4f}), "
+                  f"losses {[round(x, 5) for x in r['losses']]}, peak {r['peak_mem_gib']:.2f} GiB",
+                  flush=True)
+            print_profile(name, p)
+        with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+            surface["disk_flags"] = d = flagged_disk_run(tmp)
+        print(f"[11] CLI --data <structured phantom tree> --b {BATCH} {' '.join(FLAGS)}: "
+              f"{len(d['losses'])} steps on the native reader, losses "
+              f"{[round(x, 5) for x in d['losses']]}, launches {d['counts']}", flush=True)
+        surface["bench"] = benches = run_bench()
+        for name, r in benches.items():
+            print(f"[11] bench {name}: {r['value']} {r['unit']} (trials {r['trials']}"
+                  f"{', ' + r['spread_warning'] if 'spread_warning' in r else ''}), peak "
+                  f"{r['peak_memory_gib']:.2f} GiB, batch {r['batch']} {r['compute_dtype']}, "
+                  f"{r['device']}, {r['wall_s']:.1f} s", flush=True)
+        surface["phase_s"] = time.perf_counter() - t11
+        print(f"[11] phase 11 took {surface['phase_s']:.1f} s", flush=True)
+
         kernels = [kernel_entry(name, src, replaces, runs[LAUNCHED_IN[name]]["counts"][name],
                                 summary[name]) for name, (src, replaces) in KERNELS.items()]
         kernels += [kernel_entry(name, src, replaces, tools["counts"][name], tool_summary[name])
@@ -1485,11 +1675,13 @@ def main() -> int:
                        "runs": runs, "sync_free_step": sync, "profiles": profiles,
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
                        "tool_odd_rows": tool_odd_rows, "tool_summary": tool_summary,
-                       "graph": graph}, fh,
+                       "graph": graph, "surface": surface}, fh,
                       indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1
         traceback.print_exc()
         return 1
+    finally:
+        shutil.rmtree(lock_dir, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

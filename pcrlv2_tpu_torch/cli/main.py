@@ -4,15 +4,19 @@ and ``pcrlv2_tpu/cli/main.py``).
     PCRL_CONV3D=packed python -m pcrlv2_tpu_torch.cli.main --d 3 --n luna \
         --phase pretask --data <processed tree> [--eval_every 1] \
         [--save_every 1] [--resume <output>/train_state] [--amp] [--device cpu] \
-        [--profile_dir <dir>]
+        [--profile_dir <dir>] [--use_painting [--paint_rate 0.5]] \
+        [--use_pixel_shuffle] [--mixup 0.2]
     python -m pcrlv2_tpu_torch.cli.main --synthetic --d 3 [--b 4 --epochs 0 \
         --steps_per_epoch 3]
 
 Runs 3D LUNA pretraining on one CUDA device (``--device cpu`` only when
 asked), each step after the first a CUDA graph replay (``train/trainer.py``).
 ``PCRL_CONV3D`` (``pallas``, the default, ``packed`` or ``im2col``) picks the
-3³ conv kernels; the graphs keep the kernels they captured.  Paths not
-ported yet stop with the ROADMAP item that ports them.
+3³ conv kernels; the graphs keep the kernels they captured.  ``PCRL_AFFINE``
+(``shear``, the default, or ``exact``) picks the affine's resampler.  On
+``--data`` the train batches are read by the native reader
+(``native.py``) when its library builds, else by NumPy; the run says which.
+Paths not ported yet stop naming the JAX module they wait for.
 """
 
 from __future__ import annotations
@@ -24,12 +28,14 @@ from functools import partial
 
 import numpy as np
 
+from pcrlv2_tpu_torch import native
 from pcrlv2_tpu_torch.core.device import resolve_device
 from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
 from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
 from pcrlv2_tpu_torch.data.make_manifests import write_luna_manifest
 from pcrlv2_tpu_torch.data.manifests import get_luna_list, get_luna_pretrain_list
-from pcrlv2_tpu_torch.data.pipeline import HostLoader, load_luna_sample, synthetic_luna_batch
+from pcrlv2_tpu_torch.data.pipeline import (HostLoader, LunaBatchReader, load_luna_sample,
+                                            synthetic_luna_batch)
 from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 from pcrlv2_tpu_torch.train.trainer import TrainConfig, run_training
 
@@ -84,15 +90,26 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--h2d_dtype", default="auto", choices=("auto", "f32", "f16"),
                         help="dtype raw 3D batches are read and moved in; auto = "
                              "f16 with --amp, f32 otherwise")
-    parser.add_argument("--mixup", default=None, type=float, help="(not ported yet)")
+    parser.add_argument("--mixup", default=None, type=float,
+                        help="input-mixup alpha: x1, x2 and gt mixed with a batch "
+                             "permutation at λ ~ Beta(α, α) (the reference defines "
+                             "mixup_data but never calls it, train_2d.py:44)")
+    parser.add_argument("--use_painting", action="store_true", default=False,
+                        help="in/out-painting corruption (the Model-Genesis ops "
+                             "dormant in the reference, lunaDataset.py:45-55)")
+    parser.add_argument("--paint_rate", default=0.5, type=float,
+                        help="probability of painting when --use_painting")
+    parser.add_argument("--use_pixel_shuffle", action="store_true", default=False,
+                        help="local pixel shuffling (dormant upstream, "
+                             "lunaDataset.py:43-44)")
     parser.add_argument("--spatial", default=1, type=int, help="(not ported yet)")
     parser.add_argument("--multihost", action="store_true", default=False,
                         help="(not ported yet)")
     return parser
 
 
-def _not_ported(what: str, item: str):
-    raise SystemExit(f"{what} is not ported yet (ROADMAP Queue A item {item})")
+def _not_ported(what: str, module: str):
+    raise SystemExit(f"{what} is not ported yet (it waits for {module})")
 
 
 class SyntheticLoader:
@@ -143,9 +160,11 @@ def luna_pretask_loaders(args) -> dict:
     if h2d == "f16":
         print("==> h2d_dtype f16: raw batches are read and moved at half width "
               "(--h2d_dtype f32 for the exact-parity path)")
-    read_fn = partial(load_luna_sample, dtype=np.float16 if h2d == "f16" else np.float32)
+    dtype = np.float16 if h2d == "f16" else np.float32
+    read_fn = partial(load_luna_sample, dtype=dtype)
     train = HostLoader(x_train, args.b, read_fn, shuffle=True, seed=args.seed,
-                       num_workers=args.workers)
+                       num_workers=args.workers,
+                       batch_read_fn=native_batch_reader(args, x_train[0], dtype))
     # drop_last=False: dropping the ragged tail would leave up to b-1
     # held-out samples out of every pass
     evaluate = (HostLoader(x_valid, args.b, read_fn, shuffle=False, seed=args.seed,
@@ -154,28 +173,41 @@ def luna_pretask_loaders(args) -> dict:
     return {"train": train, "eval": evaluate}
 
 
+def native_batch_reader(args, first_path: str, dtype):
+    """The train loader's ``LunaBatchReader`` when the native library loads
+    (the JAX CLI's choice), its buffers shaped as the tree's first crop pair
+    and local crops (the JAX CLI assumes ``luna_preprocess.py``'s shapes);
+    else None, the NumPy reader, with the build error printed."""
+    if not native.available():
+        print(f"==> reader: NumPy (the native library did not load: {native.build_error()})")
+        return None
+    pair = np.load(first_path, mmap_mode="r").shape
+    local = np.load(first_path.replace("global", "local"), mmap_mode="r").shape
+    print(f"==> reader: native ({native.library_path().name}, "
+          f"{max(args.workers, 2)} threads)")
+    return LunaBatchReader(args.b, pair, local, n_threads=max(args.workers, 2), dtype=dtype)
+
+
 def prepare(argv=None):
     """Parse ``argv`` and build what ``main`` trains: ``(model, cfg,
     loaders, aug_fn, device)``, ``loaders`` = ``{"train", "eval"}`` for
     ``run_training``."""
     args = build_parser().parse_args(argv)
     if args.d != 3:
-        _not_ported(f"--d {args.d}", "8 (2D chest path)")
+        _not_ported(f"--d {args.d}", "pcrlv2_tpu/models/unet2d.py")
     if args.model != "pcrlv2" or args.phase not in ("pretask", "finetune"):
         raise SystemExit(f"no trainer for (model={args.model}, phase={args.phase})")
     if args.phase == "finetune":
-        _not_ported("--phase finetune", "9")
+        _not_ported("--phase finetune", "pcrlv2_tpu/train/finetune.py")
     if args.spatial > 1:
-        _not_ported("--spatial", "11")
+        _not_ported("--spatial", "pcrlv2_tpu/parallel/spatial_train.py")
     if args.multihost or len([g for g in str(args.gpus).split(",") if g]) > 1:
-        _not_ported("training on more than one device", "7")
-    if args.mixup is not None:
-        _not_ported("--mixup", "12")
+        _not_ported("training on more than one device", "pcrlv2_tpu/core/mesh.py")
     if not args.synthetic:
         if not args.data:
             raise SystemExit("--data is required (or pass --synthetic)")
         if args.n != "luna":
-            _not_ported(f"--n {args.n} with --data", "8 (2D chest path)")
+            _not_ported(f"--n {args.n} with --data", "pcrlv2_tpu/data/augment2d.py")
 
     device = resolve_device(args.device)
     policy = DEFAULT_POLICY if args.amp else PARITY_POLICY
@@ -186,7 +218,7 @@ def prepare(argv=None):
                       amp=args.amp, log_every=args.log_every,
                       eval_every=args.eval_every, eval_batches=args.eval_batches,
                       save_every=args.save_every, resume=args.resume,
-                      profile_dir=args.profile_dir)
+                      profile_dir=args.profile_dir, mixup=args.mixup)
     if args.synthetic:
         loaders = {"train": SyntheticLoader(args.b, args.steps_per_epoch or 4, args.seed),
                    "eval": None}
@@ -195,7 +227,9 @@ def prepare(argv=None):
         if args.steps_per_epoch is not None:
             loaders["train"] = Capped(loaders["train"], args.steps_per_epoch)
     model = PCRLv23d(policy=policy, seed=args.seed, device=device)
-    return model, cfg, loaders, make_luna_aug_fn(), device
+    aug_fn = make_luna_aug_fn(use_painting=args.use_painting, paint_rate=args.paint_rate,
+                              use_pixel_shuffle=args.use_pixel_shuffle)
+    return model, cfg, loaders, aug_fn, device
 
 
 def main(argv=None):

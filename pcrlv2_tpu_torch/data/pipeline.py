@@ -1,11 +1,13 @@
 """Host→device input pipeline of the 3D path (port of
 ``pcrlv2_tpu/data/pipeline.py``).
 
-Augmentation runs on the device, so the host only reads raw crops
-(``load_luna_sample``), batches them on a thread pool (``HostLoader``) and
-keeps the next batches in flight while the device computes
-(``device_prefetch``).  The native batch reader (``LunaBatchReader``) is
-not ported yet (ROADMAP Queue A item 6); the NumPy reader is the path.
+Augmentation runs on the device, so the host only reads raw crops and
+batches them (``HostLoader``: per sample with ``load_luna_sample`` on a
+thread pool, or a batch at a time with ``LunaBatchReader``, the native C++
+reader of ``pcrlv2_tpu_torch/native.py``), and keeps the next batches in
+flight while the device computes (``device_prefetch``).  The finetune mask
+reader (``pcrlv2_tpu/data/pipeline.py::make_luna_mask_reader``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Callable, Iterator, List, Sequence
 
 import numpy as np
 import torch
+
+from pcrlv2_tpu_torch import native
 
 
 # ---------------------------------------------------------------------------
@@ -37,15 +41,46 @@ def load_luna_sample(global_path: str, dtype=np.float32) -> dict:
     return {"pair": np.asarray(pair, dtype), "locals": np.asarray(local, dtype)}
 
 
+class LunaBatchReader:
+    """Whole batches of ``_global_`` / ``_local_`` crop files read by the
+    native thread pool (``native.read_batch``) into two float32 buffers
+    allocated once; a non-f32 ``dtype`` converts on the way out.  Without
+    the native library ``read_batch`` falls back to NumPy; ``batches``
+    counts the batches the native library served."""
+
+    def __init__(self, batch_size: int, pair_shape=(2, 64, 64, 32),
+                 local_shape=(6, 16, 16, 16), n_threads: int = 8, dtype=np.float32):
+        self.n_threads = n_threads
+        self.dtype = np.dtype(dtype)
+        self._pair = np.empty((batch_size, *pair_shape), np.float32)
+        self._local = np.empty((batch_size, *local_shape), np.float32)
+        self.batches = 0
+
+    def __call__(self, global_paths: Sequence[str]) -> dict:
+        n = len(global_paths)
+        local_paths = [p.replace("global", "local") for p in global_paths]
+        native.read_batch(global_paths, self._pair[:n], self.n_threads)
+        native.read_batch(local_paths, self._local[:n], self.n_threads)
+        if native.available():
+            self.batches += 1
+        # astype copies: the buffers are reused for the next batch while the
+        # consumer still holds this one
+        return {"pair": self._pair[:n].astype(self.dtype, copy=True),
+                "locals": self._local[:n].astype(self.dtype, copy=True)}
+
+
 class HostLoader:
     """Batches of ``read_fn(path)`` samples stacked along a new first axis:
     the paths shuffled per epoch by ``np.random.RandomState(seed + epoch)``
     (the JAX package's order), read ``2·num_workers`` samples ahead on a
-    thread pool; with ``drop_last`` the ragged tail is left out."""
+    thread pool; with ``drop_last`` the ragged tail is left out.  With
+    ``batch_read_fn`` (a ``LunaBatchReader``) each batch's paths are read
+    in one call instead, one batch ahead of the consumer."""
 
     def __init__(self, paths: Sequence[str], batch_size: int,
                  read_fn: Callable[[str], dict], *, shuffle: bool = True,
-                 seed: int = 0, num_workers: int = 8, drop_last: bool = True):
+                 seed: int = 0, num_workers: int = 8, drop_last: bool = True,
+                 batch_read_fn: Callable[[Sequence[str]], dict] | None = None):
         if not paths:
             raise ValueError("empty path list")
         self.paths = list(paths)
@@ -55,6 +90,7 @@ class HostLoader:
         self.seed = seed
         self.num_workers = num_workers
         self.drop_last = drop_last
+        self.batch_read_fn = batch_read_fn
 
     def __len__(self) -> int:
         n = len(self.paths) // self.batch_size
@@ -67,6 +103,9 @@ class HostLoader:
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
         paths = [self.paths[i] for i in order]
+        if self.batch_read_fn is not None:
+            yield from self._epoch_batched(paths)
+            return
         with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
             pending: collections.deque = collections.deque()
             ahead = self.num_workers * 2
@@ -78,6 +117,17 @@ class HostLoader:
                     idx += 1
                 samples = [pending.popleft().result() for _ in range(len(chunk))]
                 yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+    def _epoch_batched(self, paths: List[str]) -> Iterator[dict]:
+        chunks = [paths[b * self.batch_size:(b + 1) * self.batch_size]
+                  for b in range(len(self))]
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(self.batch_read_fn, chunks[0]) if chunks else None
+            for b in range(len(chunks)):
+                batch = fut.result()
+                if b + 1 < len(chunks):
+                    fut = pool.submit(self.batch_read_fn, chunks[b + 1])
+                yield batch
 
 
 # ---------------------------------------------------------------------------
@@ -202,4 +252,73 @@ def write_synthetic_luna_tree(root: str, n_subsets: int = 10,
                         rng.rand(2, 64, 64, 32).astype(np.float32))
                 np.save(os.path.join(d, f"{uid}_local_{k}.npy"),
                         rng.rand(6, 16, 16, 16).astype(np.float32))
+    return uids
+
+
+def _structured_phantom(rng: np.random.RandomState, shape=(80, 80, 48)):
+    """One blob/stripe phantom volume and its blob mask, values in [0, 1]:
+    a smooth low-frequency background around 0.15; 2-5 Gaussian blobs
+    (σ ∈ [3, 7], amplitude ∈ [0.5, 0.8]), the mask being where their sum
+    exceeds 0.25; 1-2 bright axis-aligned slabs at blob intensity, not in
+    the mask, so that a threshold on intensity cannot segment the blobs."""
+    X, Y, Z = shape
+    coarse = rng.rand(X // 8, Y // 8, Z // 8).astype(np.float32)
+    bg = 0.1 + 0.1 * np.repeat(np.repeat(np.repeat(coarse, 8, 0), 8, 1), 8, 2)
+    xs, ys, zs = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z), indexing="ij")
+    blob_field = np.zeros(shape, np.float32)
+    for _ in range(rng.randint(2, 6)):
+        cx, cy, cz = (rng.uniform(8, X - 8), rng.uniform(8, Y - 8), rng.uniform(6, Z - 6))
+        sigma = rng.uniform(3.0, 7.0)
+        amp = rng.uniform(0.5, 0.8)
+        d2 = (xs - cx) ** 2 + (ys - cy) ** 2 + (zs - cz) ** 2
+        blob_field += amp * np.exp(-d2 / (2 * sigma * sigma)).astype(np.float32)
+    mask = (blob_field > 0.25).astype(np.float32)
+    vol = bg + blob_field
+    for _ in range(rng.randint(1, 3)):
+        axis = rng.randint(0, 3)
+        pos = rng.randint(4, shape[axis] - 4)
+        thick = rng.randint(2, 4)
+        sl = [slice(None)] * 3
+        sl[axis] = slice(pos, pos + thick)
+        vol[tuple(sl)] += rng.uniform(0.5, 0.8)
+    return np.clip(vol, 0.0, 1.0).astype(np.float32), mask
+
+
+def write_structured_luna_tree(root: str, n_subsets: int = 10, uids_per_subset: int = 2,
+                               pairs_per_uid: int = 2, seed: int = 0, size=(64, 64, 32),
+                               local=(16, 16, 16), n_views: int = 6) -> List[str]:
+    """A processed-LUNA tree of structured phantoms (``_structured_phantom``)
+    with their masks: ``subset{i}/{uid}_global_{k}.npy`` (2, 64, 64, 32),
+    two overlapping crops of one phantom; ``{uid}_local_{k}.npy``
+    (6, 16, 16, 16), crops of the first; ``{uid}_mask_{k}.npy``, the blob
+    mask of each global crop.  A learnable synthetic task: a run's eval loss
+    falls.  The same files as the JAX package's for the same arguments.
+    Returns the UIDs."""
+    rng = np.random.RandomState(seed)
+    uids = []
+    for s in range(n_subsets):
+        d = os.path.join(root, f"subset{s}")
+        os.makedirs(d, exist_ok=True)
+        for u in range(uids_per_subset):
+            uid = f"1.2.{s}.{u}"
+            uids.append(uid)
+            for k in range(pairs_per_uid):
+                vol, mask = _structured_phantom(rng)
+                # two overlapping crops of one phantom (the pretask pair)
+                crops, mcrops = [], []
+                base = [rng.randint(0, vol.shape[i] - size[i] - 8) for i in range(3)]
+                for _ in range(2):
+                    off = [min(b + rng.randint(0, 9), vol.shape[i] - size[i])
+                           for i, b in enumerate(base)]
+                    sl = tuple(slice(o, o + size[i]) for i, o in enumerate(off))
+                    crops.append(vol[sl])
+                    mcrops.append(mask[sl])
+                np.save(os.path.join(d, f"{uid}_global_{k}.npy"), np.stack(crops))
+                np.save(os.path.join(d, f"{uid}_mask_{k}.npy"), np.stack(mcrops))
+                locs = []
+                for _ in range(n_views):
+                    off = [rng.randint(0, size[i] - local[i]) for i in range(3)]
+                    sl = tuple(slice(o, o + local[i]) for i, o in enumerate(off))
+                    locs.append(crops[0][sl])
+                np.save(os.path.join(d, f"{uid}_local_{k}.npy"), np.stack(locs))
     return uids

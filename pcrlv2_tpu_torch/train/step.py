@@ -28,10 +28,16 @@ int64 tensor, advances by ``~bad``.  Nothing in the step reads a value back
 to the host, so the host can queue the next step while the device runs
 this one; the metrics it returns are 0-d tensors.
 
+Input mixup (``mixup_alpha``, the JAX step's ``mixup_alpha``; the
+reference defines ``mixup_data`` but never calls it): ``mix`` = (λ, perm),
+a 0-d f32 λ ≥ 0.5 and a permutation of the batch, both on the device;
+x1, x2 and gt (not the locals) become ``λ·t + (1 − λ)·t[perm]`` before the
+forwards.  ``draw_mixup`` draws them.
+
 ``pipelined_train_step`` is the port of ``make_pipelined_train_step``: it
-draws the step's levels on the device, runs the step and then the NEXT
-batch's augmentation, the JAX package's one program per step; the trainer
-captures it as a CUDA graph.
+draws the step's mixup and levels on the device, runs the step and then
+the NEXT batch's augmentation, the JAX package's one program per step; the
+trainer captures it as a CUDA graph.
 
 Evaluation (``eval_step``, port of the JAX trainer's eval function) is the
 same loss, forward only, with BatchNorm on batch statistics as in training;
@@ -41,7 +47,7 @@ it found it.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,12 +81,17 @@ def flatten_locals(locals_bv: torch.Tensor):
 
 
 def loss_fn(model: torch.nn.Module, views: Dict[str, torch.Tensor],
-            levels, epoch, beta_period: float = 240.0):
+            levels, epoch, beta_period: float = 240.0,
+            mix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """The 4-term PCRLv2 loss → ``(total, metrics)``; metrics are detached.
-    ``levels`` and ``epoch`` as ``train_step`` takes them."""
+    ``levels`` and ``epoch`` as ``train_step`` takes them; ``mix`` = (λ,
+    perm) mixes x1, x2 and gt first."""
     x1, x2, gt = views["x1"], views["x2"], views["gt"]
     levels = on_device(levels, torch.int64, x1.device)
     epoch = on_device(epoch, torch.int64, x1.device)
+    if mix is not None:
+        lam, perm = mix
+        x1, x2, gt = (lam * t + (1.0 - lam) * t.index_select(0, perm) for t in (x1, x2, gt))
     out1, feats1, masks1 = model(x1)
     _, feats2, _ = model(x2)
     local_flat, b, n_views = flatten_locals(views["locals"])
@@ -114,11 +125,13 @@ def loss_fn(model: torch.nn.Module, views: Dict[str, torch.Tensor],
 def train_step(state: TrainState, views: Dict[str, torch.Tensor],
                levels, lr, epoch, *,
                loss_guard: float | None = 1000.0, guard_warmup_epochs: int = 10,
-               beta_period: float = 240.0) -> Dict:
+               beta_period: float = 240.0,
+               mix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Dict:
     """One training step in place on ``state``; returns the metrics,
     ``skipped`` and ``level`` (``levels[0]``) as 0-d tensors.  ``levels``
     (1-D int64), ``lr`` (0-d f32) and ``epoch`` (0-d int64) are device
-    tensors, or a list, a float and an int, copied over first."""
+    tensors, or a list, a float and an int, copied over first; ``mix`` as
+    ``loss_fn`` takes it."""
     model = state.model
     device = state.step.device
     levels = on_device(levels, torch.int64, device)
@@ -129,7 +142,7 @@ def train_step(state: TrainState, views: Dict[str, torch.Tensor],
     torch._foreach_copy_(state.saved_stats, buffers)
     for p in model.parameters():
         p.grad = None
-    loss, metrics = loss_fn(model, views, levels, epoch, beta_period)
+    loss, metrics = loss_fn(model, views, levels, epoch, beta_period, mix)
     bad = ~torch.isfinite(loss.detach())
     if loss_guard is not None:
         bad = bad | ((loss.detach() > loss_guard) & (epoch > guard_warmup_epochs))
@@ -150,14 +163,33 @@ def draw_levels(gen: torch.Generator, n_views: int) -> torch.Tensor:
                          device=gen.device)
 
 
+def draw_mixup(gen: torch.Generator, alpha: float, batch: int):
+    """(λ, perm) of one step on ``gen``'s device: λ ~ Beta(α, α) folded to
+    max(λ, 1 − λ), perm the ``argsort`` of uniform keys.  λ = G₁/(G₁ + G₂)
+    of two Gamma(α) draws, taken in log space as JAX's ``random.beta`` is:
+    at α = 0.2 an f32 Gamma(α) draw falls below 1e-8 about 3 % of the time
+    and can reach the smallest normal float, where the ratio loses its
+    precision, so each is drawn as log G(α + 1) + log(U)/α (U ∈ (0, 1]) and
+    λ is the sigmoid of their difference, finite for any draw."""
+    dev = gen.device
+    shape = torch.full((2,), alpha + 1.0, device=dev)
+    log_g = (torch.log(torch._standard_gamma(shape, generator=gen))
+             + torch.log1p(-torch.rand(2, generator=gen, device=dev)) / alpha)
+    lam = torch.sigmoid(log_g[0] - log_g[1])
+    perm = torch.rand(batch, generator=gen, device=dev).argsort()
+    return torch.maximum(lam, 1.0 - lam), perm
+
+
 def pipelined_train_step(state: TrainState, views: Dict[str, torch.Tensor],
                          raw_next: Optional[Dict[str, torch.Tensor]],
                          aug_gen: torch.Generator, level_gen: torch.Generator,
-                         lr, epoch, *, aug_fn: Callable, **step_kwargs):
+                         lr, epoch, *, aug_fn: Callable,
+                         mixup_alpha: Optional[float] = None, **step_kwargs):
     """The step and the NEXT batch's augmentation in one function (port of
     ``make_pipelined_train_step``, ``pcrlv2_tpu/train/step.py:245-285``):
-    draws the levels on ``level_gen``, runs ``train_step`` on ``views``,
-    then ``aug_fn(aug_gen, raw_next)``.  Returns ``(metrics, next_views)``.
+    draws the mixup (with ``mixup_alpha``) and the levels on ``level_gen``,
+    runs ``train_step`` on ``views``, then ``aug_fn(aug_gen, raw_next)``.
+    Returns ``(metrics, next_views)``.
 
     ``raw_next=None`` is the last step of an epoch: the step alone, with no
     augmentation draws (the JAX trainer feeds the last batch as its own
@@ -165,8 +197,10 @@ def pipelined_train_step(state: TrainState, views: Dict[str, torch.Tensor],
     stateless), so a pipelined run draws what the sequential ``aug_fn`` +
     ``train_step`` loop draws, across epochs and resumes; ``next_views`` is
     then None.  The two generators keep the draws of each in order."""
+    mix = (None if mixup_alpha is None
+           else draw_mixup(level_gen, mixup_alpha, views["x1"].shape[0]))
     levels = draw_levels(level_gen, views["locals"].shape[1])
-    metrics = train_step(state, views, levels, lr, epoch, **step_kwargs)
+    metrics = train_step(state, views, levels, lr, epoch, mix=mix, **step_kwargs)
     next_views = None if raw_next is None else aug_fn(aug_gen, raw_next)
     return metrics, next_views
 

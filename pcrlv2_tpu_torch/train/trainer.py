@@ -40,6 +40,7 @@ from pcrlv2_tpu_torch.train.checkpoint import (export_pcrlv23d, load_train_state
                                                save_train_state)
 from pcrlv2_tpu_torch.train.optimizer import cosine_lr
 from pcrlv2_tpu_torch.train.step import N_LEVELS, TrainState, eval_step, pipelined_train_step
+from pcrlv2_tpu_torch.utils import chiplock
 from pcrlv2_tpu_torch.utils.meters import AverageMeter, MetricLogger
 
 #: eager steps before the first capture: the first step builds and binds the
@@ -71,6 +72,7 @@ class TrainConfig:
     save_every: int = 0    # train-state cadence besides the reference epochs
     resume: Optional[str] = None  # train-state directory to continue from
     profile_dir: Optional[str] = None  # a torch.profiler trace of the run goes here
+    mixup: Optional[float] = None  # input-mixup α (the JAX step's mixup_alpha)
 
     def __post_init__(self):
         self.log_every = max(1, int(self.log_every))
@@ -203,13 +205,14 @@ class CapturedStep:
         return _Graph(graph, batch_in, metrics, next_views, dict(launches))
 
 
-def _step_fn(state: TrainState, aug_gen, level_gen, lr, epoch, aug_fn):
+def _step_fn(state: TrainState, aug_gen, level_gen, lr, epoch, aug_fn,
+             mixup_alpha: Optional[float] = None):
     """``pipelined_train_step`` on these as ``fn(views, raw_next)``.  It holds
     no reference to the trainer, so a trainer no longer used is freed, its
     graphs with it, as soon as its last reference goes."""
     def step(views: dict, raw_next: Optional[dict]):
         return pipelined_train_step(state, views, raw_next, aug_gen, level_gen, lr, epoch,
-                                    aug_fn=aug_fn)
+                                    aug_fn=aug_fn, mixup_alpha=mixup_alpha)
     return step
 
 
@@ -229,7 +232,7 @@ class Trainer:
         self.lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self.epoch = torch.zeros((), dtype=torch.int64, device=self.device)
         self._eager_step = _step_fn(self.state, self.aug_gen, self.level_gen, self.lr,
-                                    self.epoch, aug_fn)
+                                    self.epoch, aug_fn, cfg.mixup)
         self.captured = (CapturedStep(self._eager_step, self.generators().values())
                          if cuda_graph and self.device.type == "cuda" else None)
         self.steps_run = 0
@@ -347,8 +350,12 @@ def run_training(model: torch.nn.Module, cfg: TrainConfig, loader, aug_fn,
     ``cfg.resume`` (reference epoch loop ``train_3d.py:60-83``; eval, save
     and profile cadence of the JAX trainer, ``trainer.py:419-457``), on a
     ``Trainer(..., cuda_graph=cuda_graph)``; the state is restored before any
-    step, so before any capture."""
+    step, so before any capture.  On a CUDA device the run holds the GPU
+    lock (``utils/chiplock.py``; it warns if another process holds it) and
+    releases it however the run ends."""
     trainer = Trainer(model, cfg, aug_fn, device, cuda_graph)
+    lock = (chiplock.guard_warn(f"trainer n={cfg.n} output={cfg.output}")
+            if trainer.device.type == "cuda" else None)
     try:
         start = 0
         if cfg.resume:
@@ -359,6 +366,8 @@ def run_training(model: torch.nn.Module, cfg: TrainConfig, loader, aug_fn,
                 run_epoch(trainer, epoch, loader, eval_loader)
     finally:
         trainer.logger.close()
+        if lock is not None:
+            lock.release()
     return trainer
 
 

@@ -37,7 +37,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_package_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(pcrlv2_tpu_torch.__path__,
                                                   "pcrlv2_tpu_torch.")]
-    assert "pcrlv2_tpu_torch.ops.conv3d_kernel" in mods
+    for name in ("ops.conv3d_kernel", "native", "utils.chiplock", "tools.bench"):
+        assert f"pcrlv2_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
@@ -62,16 +63,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--synthetic", "--d", "2"], "item 8"),
-    (["--synthetic", "--phase", "finetune"], "item 9"),
+    (["--synthetic", "--d", "2"], "pcrlv2_tpu/models/unet2d.py"),
+    (["--synthetic", "--phase", "finetune"], "pcrlv2_tpu/train/finetune.py"),
     ([], "--data is required"),
-    (["--synthetic", "--spatial", "2"], "item 11"),
-    (["--synthetic", "--multihost"], "item 7"),
-    (["--synthetic", "--mixup", "0.2"], "item 12"),
+    (["--synthetic", "--spatial", "2"], "pcrlv2_tpu/parallel/spatial_train.py"),
+    (["--synthetic", "--multihost"], "pcrlv2_tpu/core/mesh.py"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
-    """Paths not ported yet stop with their ROADMAP item; without a data
-    source the CLI says what it needs."""
+    """Paths not ported yet stop naming the JAX module they wait for;
+    without a data source the CLI says what it needs."""
     with pytest.raises(SystemExit, match=item):
         cli.main(argv + ["--device", "cpu"])
 
