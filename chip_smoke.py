@@ -109,7 +109,31 @@ Phases, any failure exits non-zero without the final line:
    it must have released; the script points ``PCRL_CHIP_LOCK`` at a file
    in a temporary directory of its own for the whole run), and its timed loop (``bench.run``) at b = 32 in
    f32 and at b = 4 in both policies, ``BENCH_RUNS`` steps and trials
-   reduced: volumes/s, the trials' spread and peak memory.
+   reduced: volumes/s, the trials' spread and peak memory;
+12. the 2D chest path (``--d 2 --n chest``), which runs none of kernels
+   #1-#10 (the JAX package's 2D convs are XLA's, so the port's are cuDNN's):
+   ``PCRLv2``'s forward on the card against the same weights on the CPU,
+   in f32 (TF32 off) and under ``--amp``'s bf16 policy; the CLI
+   (``--synthetic --d 2 --n chest --b 16``, ``run2d.sh``'s b = 64 over its
+   4 GPUs, 224² global and 96² local views from a 1024² canvas) for
+   ``STEPS`` steps in f32 and with ``--amp`` on the graphs: losses finite,
+   the encoder ``.pt`` loading strictly into ``ResNet18Encoder``, every
+   launch counter of #1-#10 at 0, step time, peak memory and, under the
+   profiler, device time a step by kernel group (``GROUPS2D``), busy share
+   and device kernels a step; the graph replays against the eager loop,
+   two epochs from one state and seed, bit for bit, in f32 and ``--amp``,
+   then ``SYNC_STEPS`` replays under the sync-debug mode; one ``train_step``
+   under ``torch.cuda.set_sync_debug_mode("error")``; the disk path: a
+   ``chest_train.txt`` and ``CHEST_IMAGES`` 1024² grey PNGs, ``--data ...
+   --epochs 1 --eval_every 1 --save_every 1`` through ``--chest_cache auto``
+   (each image decoded once), then ``--resume <output>/train_state --epochs
+   2``, which must read every image from the cache and decode none (where
+   Pillow is not installed, the phase says so, writes the cache entries in
+   ``CachedChestReader``'s layout itself, passes ``--chest_canvas 1024`` and
+   runs the same two runs); then the bench at ``BENCH_DIM=2``
+   (``BENCH2D_RUNS``: 64 and 32 images under ``--amp``'s policy, 32 in f32,
+   trials reduced as phase 11's): images/s, the trials' spread and peak
+   memory.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -895,7 +919,7 @@ def _kernel_us(evt) -> float:
     return 0.0
 
 
-def profile_cli(argv, step_s: float, cuda_graph: bool = True):
+def profile_cli(argv, step_s: float, cuda_graph: bool = True, groups=GROUPS):
     """Phase 7: the CLI's training path under ``torch.profiler``: the
     ``Trainer`` that ``run_training`` builds (on the graph path, or eager
     with ``cuda_graph=False``), fed through ``device_prefetch``; each batch's
@@ -940,11 +964,11 @@ def profile_cli(argv, step_s: float, cuda_graph: bool = True):
     api = {e.key: e.count / PROFILED for e in events
            if _kernel_us(e) == 0 and re.match(r"cu(da)?[A-Z]", e.key)}
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / PROFILED
-    groups = {label: 0.0 for _, label in GROUPS}
-    groups["other"] = 0.0
+    by_group = {label: 0.0 for _, label in groups}
+    by_group["other"] = 0.0
     for name, us, _ in kernels:
-        label = next((lab for frag, lab in GROUPS if frag in name.lower()), "other")
-        groups[label] += us / 1e3 / PROFILED
+        label = next((lab for frag, lab in groups if frag in name.lower()), "other")
+        by_group[label] += us / 1e3 / PROFILED
     # #5's and #6's kernels by name: bf16 runs must show their mma kernels
     slab = sorted({m.group(0) for n, _, _ in kernels
                    for m in [re.search(r"conv3d_(packed|im2col)_kernel_\w+(<[^>]*>)?", n)] if m})
@@ -955,7 +979,7 @@ def profile_cli(argv, step_s: float, cuda_graph: bool = True):
                                                 if "LaunchKernel" in k),
             "graph_launches_per_step": api.get("cudaGraphLaunch", 0.0),
             "cuda_graph": cuda_graph,
-            "ms_per_step_by_group": groups, "slab_kernels": slab,
+            "ms_per_step_by_group": by_group, "slab_kernels": slab,
             "top_kernels": [{"name": n[:120], "ms_per_step": us / 1e3 / PROFILED,
                              "launches_per_step": c / PROFILED}
                             for n, us, c in sorted(kernels, key=lambda k: -k[1])[:15]]}
@@ -1175,10 +1199,11 @@ def graph_trainer(amp: bool, out: str, cuda_graph: bool, seed: int = 7, mixup=No
     return Trainer(model, cfg, make_luna_aug_fn(**aug_flags), "cuda", cuda_graph=cuda_graph)
 
 
-def run_epochs(trainer, batches: dict, what: str):
+def run_epochs(trainer, batches: dict, what: str, dim: int = 3):
     """``trainer.train_epoch`` over ``batches``; every step's metrics copied
     as the step returns (before a replay writes over them); the launch
-    counters set to 0 before and checked after.  Returns (metrics, counts)."""
+    counters set to 0 before and checked after (``dim`` 2: all 0).
+    Returns (metrics, counts)."""
     import torch
 
     from pcrlv2_tpu_torch.ops import _build
@@ -1197,7 +1222,7 @@ def run_epochs(trainer, batches: dict, what: str):
         for epoch, epoch_batches in batches.items():
             trainer.train_epoch(epoch, epoch_batches)
         torch.cuda.synchronize()
-        counts = launched("pallas", len(seen), 0, what)
+        counts = launched("pallas", len(seen), 0, what) if dim == 3 else no_launches(what)
     finally:
         del trainer.step
     return seen, counts
@@ -1410,6 +1435,324 @@ def run_bench() -> dict:
                           warmup=int(BENCH_ENV["BENCH_WARMUP"]),
                           steps=int(BENCH_ENV["BENCH_STEPS"]),
                           trials=int(BENCH_ENV["BENCH_TRIALS"]), device="cuda")
+        out[name] = dict(r, wall_s=time.perf_counter() - t0)
+    return out
+
+
+# Phase 12: the 2D chest path.  run2d.sh trains at b = 64 on 4 GPUs: 16 a card
+BATCH2D = 16
+CANVAS2D = 512     # the canvas of phase 12's device-resident batches
+CHEST_IMAGES = 32  # images of the disk path's tree: 2 steps an epoch at b = 16
+#: device-kernel name fragment → group of phase 12's profiles (first match)
+GROUPS2D = [(frag, "cuDNN convs (fwd, dgrad, wgrad)")
+            for frag in ("fprop", "dgrad", "wgrad", "conv", "cudnn")] + [
+    ("gemm", "cuBLAS GEMM (crops, resizes, blur, MLP)"), ("pool", "max pool"),
+    ("elementwise", "elementwise"), ("reduce", "reductions (BN, GAP, losses)"),
+    ("memcpy", "copies (the raw batch's, into the graph's buffers)")]
+#: (name, BENCH_BATCH, bf16 policy) of phase 12's bench runs: the bench times
+#: 2 × BENCH_BATCH images, as bench.py does; the first through bench.main()
+BENCH2D_RUNS = [("b64_amp", 32, True), ("b32_amp", 16, True), ("b32_f32", 16, False)]
+
+
+def no_launches(what: str) -> dict:
+    """Every launch counter of #1-#10 must read 0 (the 2D path runs none)."""
+    from pcrlv2_tpu_torch.ops import _build
+
+    counts = {k: _build.launches[k] for k in list(KERNELS) + list(TOOL_KERNELS)}
+    if any(counts.values()):
+        raise AssertionError(f"{what}: launched {counts}, expected none")
+    return counts
+
+
+def model2d_reference_check():
+    """Phase 12: ``PCRLv2``'s train-mode forward (segmentation output and the
+    5 masks) at b = 4, 64² on the card against the same weights on the CPU:
+    f32 (TF32 off) within 2e-4 of each output's largest entry (the port's
+    f32 forward reads 3e-5 against a float64 JAX run at this size on the
+    CPU; BatchNorm over 16 values a channel in the last stage amplifies the
+    two sides' rounding); bf16 by phase 5's rule (1.5× the CPU's own bf16
+    distance from its f32 forward, plus 2^-8 of the largest entry)."""
+    import torch
+
+    from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from pcrlv2_tpu_torch.models.unet2d import PCRLv2
+
+    x = torch.rand(4, 64, 64, 3, generator=torch.Generator().manual_seed(6))
+
+    def forward(policy, device):
+        model = PCRLv2(policy=policy, seed=5, device=device)
+        with torch.no_grad():
+            _, out, masks = model(x.to(device))
+        return [v.float().cpu() for v in (out, *masks)]
+
+    names = ("out",) + tuple(f"mask{i}" for i in range(5))
+    f32_card, f32_cpu = forward(PARITY_POLICY, "cuda"), forward(PARITY_POLICY, "cpu")
+    f32 = {n: (a - b).abs().max().item() / b.abs().max().item()
+           for n, a, b in zip(names, f32_card, f32_cpu)}
+    if not all(e <= 2e-4 for e in f32.values()):
+        raise AssertionError(f"2D model on the card vs CPU, f32: {f32} (limit 2e-4)")
+    bf16_card, bf16_cpu = forward(DEFAULT_POLICY, "cuda"), forward(DEFAULT_POLICY, "cpu")
+    bf16 = {}
+    for name, card, cpu, ref in zip(names, bf16_card, bf16_cpu, f32_cpu):
+        scale = ref.abs().max().item()
+        err = (card - ref).abs().max().item() / scale
+        limit = 1.5 * (cpu - ref).abs().max().item() / scale + 2.0 ** -8
+        bf16[name] = {"card_vs_cpu_f32": err, "limit": limit}
+        if not err <= limit:
+            raise AssertionError(f"bf16 2D model on the card, {name}: {err:.3e} of the "
+                                 f"largest entry from the CPU's f32 forward, limit {limit:.3e}")
+    return f32, bf16
+
+
+def cli2d_argv(amp: bool, out_dir: str, steps: int):
+    return (["--synthetic", "--d", "2", "--n", "chest", "--phase", "pretask", "--b",
+             str(BATCH2D), "--epochs", "0", "--steps_per_epoch", str(steps), "--log_every", "1",
+             "--seed", "0", "--output", out_dir] + (["--amp"] if amp else []))
+
+
+def run_cli2d(amp: bool, out_dir: str, steps: int = STEPS) -> dict:
+    """Phase 12: the port's CLI at ``--d 2`` in this process on the graphs,
+    the launch counters set to 0 before and read after (all 0); losses
+    finite; the encoder ``.pt`` loads strictly into ``ResNet18Encoder``."""
+    import torch
+
+    from pcrlv2_tpu_torch.cli.main import main as cli_main
+    from pcrlv2_tpu_torch.models.resnet import ResNet18Encoder
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.train.checkpoint import import_resnet18_encoder
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    trainer = cli_main(cli2d_argv(amp, out_dir, steps))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = no_launches(f"2D CLI{' --amp' if amp else ''}")
+    _, rows = step_rows(os.path.join(out_dir, "metrics.jsonl"))
+    if len(rows) != steps:
+        raise AssertionError(f"expected {steps} logged rows, got {len(rows)}")
+    import_resnet18_encoder(os.path.join(out_dir, "pcrlv2_chest_pretask_1.0_0.pt"),
+                            ResNet18Encoder(device="cuda", seed=1))
+    step_s = step_times(rows)
+    return {"counts": counts, "wall_s": wall, "step_s": step_s,
+            "step_s_median": statistics.median(step_s[WARMUP:]),
+            "graphs": len(trainer.captured.graphs),
+            "capture_s": list(trainer.captured.capture_s.values()),
+            "dt_s": [r["DT"] for r in rows], "losses": [r["loss"] for r in rows],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def sync_free_step2d() -> dict:
+    """Phase 12: one 2D ``train_step`` at b = 16 (224² and 6 × 96² views on
+    the card), after a warm-up step, under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from pcrlv2_tpu_torch.models.unet2d import PCRLv2
+    from pcrlv2_tpu_torch.train.step import LOSS_GUARD, TrainState, train_step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    views = {k: torch.randn((BATCH2D, 224, 224, 3), generator=gen, device=dev)
+             for k in ("x1", "x2", "gt")}
+    views["locals"] = torch.randn((BATCH2D, 6, 96, 96, 3), generator=gen, device=dev)
+    state = TrainState(PCRLv2(device="cuda", seed=7))
+    levels = torch.arange(1 + 2 * 6, device=dev) % 5
+    lr = torch.full((), 1e-3, device=dev)
+    epoch = torch.zeros((), dtype=torch.int64, device=dev)
+    train_step(state, views, levels, lr, epoch, loss_guard=LOSS_GUARD[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = train_step(state, views, levels, lr, epoch, loss_guard=LOSS_GUARD[2])
+        host_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    loss, skipped, step = float(metrics["loss"]), float(metrics["skipped"]), int(state.step)
+    if not (math.isfinite(loss) and skipped == 0.0 and step == 2):
+        raise AssertionError(f"2D sync-free step: loss {loss}, skipped {skipped}, step {step}")
+    return {"loss": loss, "host_s": host_s}
+
+
+def graph_batches2d(seed: int) -> dict:
+    """Phase 12's raw chest batches on the card: {epoch: [batch, ...]}."""
+    import torch
+
+    from pcrlv2_tpu_torch.data.pipeline import synthetic_chest_batch
+
+    return {epoch: [{"image": torch.from_numpy(synthetic_chest_batch(
+        BATCH2D, canvas=CANVAS2D, seed=seed + 10 * epoch + i)["image"]).cuda()}
+        for i in range(n)] for epoch, n in enumerate(GRAPH_EPOCHS)}
+
+
+def graph_trainer2d(amp: bool, out: str, cuda_graph: bool, seed: int = 7):
+    """A 2D trainer from one seed (epochs 0-2 of the cosine LR)."""
+    from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from pcrlv2_tpu_torch.data.augment2d import make_chest_aug_fn
+    from pcrlv2_tpu_torch.models.unet2d import PCRLv2
+    from pcrlv2_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    model = PCRLv2(policy=DEFAULT_POLICY if amp else PARITY_POLICY, seed=seed, device="cuda")
+    cfg = TrainConfig(n="chest", b=BATCH2D, epochs=2, lr=1e-2, log_every=100, seed=3, amp=amp,
+                      output=out)
+    return Trainer(model, cfg, make_chest_aug_fn(), "cuda", cuda_graph=cuda_graph)
+
+
+def graph_identity2d(amp: bool, tmp: str) -> dict:
+    """Phase 12: phase 10's check on the 2D path: two epochs on the eager
+    loop and on the graphs from one state and seed, every leaf bit for bit,
+    no kernel of #1-#10 launched; then each trainer's replay loop under the
+    sync-debug mode."""
+    batches = graph_batches2d(seed=20)
+    label = "2D " + ("--amp" if amp else "f32")
+    eager = graph_trainer2d(amp, os.path.join(tmp, "eager"), cuda_graph=False)
+    graph = graph_trainer2d(amp, os.path.join(tmp, "graph"), cuda_graph=True)
+    m_eager, _ = run_epochs(eager, batches, f"eager loop {label}", dim=2)
+    m_graph, counts = run_epochs(graph, batches, f"graph replays {label}", dim=2)
+    diffs = differences(state_leaves(eager, m_eager), state_leaves(graph, m_graph))
+    if diffs:
+        raise AssertionError(
+            f"{label}: the graph replays differ from the eager loop in {len(diffs)} "
+            f"leaves; largest first: " + ", ".join(f"{k} ({d:.3e})" for k, d in diffs[:12]))
+    host_eager = replay_loop(eager, batches[0], SYNC_STEPS)
+    host_graph = replay_loop(graph, batches[0], SYNC_STEPS)
+    no_launches(f"{label} sync-debug replays")
+    for t in (eager, graph):
+        t.logger.close()
+    return {"steps": len(m_graph), "leaves": len(state_leaves(graph, m_graph)),
+            "counts": counts, "graphs": len(graph.captured.graphs),
+            "capture_s": list(graph.captured.capture_s.values()),
+            "losses": [float(m["loss"]) for m in m_graph],
+            "host_s_eager": host_eager, "host_s_graph": host_graph}
+
+
+def chest_tree(root: str, n: int = CHEST_IMAGES, size: int = 1024) -> bool:
+    """``n`` random 1024² grey PNGs under ``root/images`` and a
+    ``chest_train.txt`` (name + 14 labels); returns whether Pillow wrote
+    them.  Without Pillow the list names the images, none is written, and
+    the caller writes their cache entries."""
+    import numpy as np
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    rng = np.random.RandomState(3)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    with open(os.path.join(root, "chest_train.txt"), "w") as f:
+        for i in range(n):
+            name = f"images/{i:05d}.png"
+            if Image is not None:
+                Image.fromarray(rng.randint(0, 256, (size, size), dtype=np.uint8), "L").save(
+                    os.path.join(root, name), compress_level=1)
+            f.write(name + " " + " ".join(str(v) for v in rng.randint(0, 2, 14)) + "\n")
+    return Image is not None
+
+
+def write_chest_cache(root: str, cache: str, size: int = 1024) -> int:
+    """The entries ``CachedChestReader(cache, size)`` would write for the
+    tree's images, written here (random grey uint8 (size, size, 1))."""
+    import numpy as np
+
+    from pcrlv2_tpu_torch.data.manifests import get_chest_list
+    from pcrlv2_tpu_torch.data.pipeline import CachedChestReader
+
+    names, _ = get_chest_list(os.path.join(root, "chest_train.txt"), root)
+    reader = CachedChestReader(cache, size)
+    rng = np.random.RandomState(4)
+    for name in names:
+        np.save(reader.cache_path(name), rng.randint(0, 256, (size, size, 1), dtype=np.uint8))
+    return len(names)
+
+
+def run_disk2d(tmp: str) -> dict:
+    """Phase 12: the CLI's 2D path on a chest tree through the decode cache:
+    epochs 0-1 with eval and saves, then ``--resume`` at epoch 2, which must
+    read every image from the cache and decode none."""
+    import torch
+
+    from pcrlv2_tpu_torch.cli.main import prepare
+    from pcrlv2_tpu_torch.models.resnet import ResNet18Encoder
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.train.checkpoint import import_resnet18_encoder
+    from pcrlv2_tpu_torch.train.trainer import run_training
+
+    tree, out = os.path.join(tmp, "tree"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    pil = chest_tree(tree)
+    argv = ["--data", tree, "--d", "2", "--n", "chest", "--b", str(BATCH2D),
+            "--train_list", os.path.join(tree, "chest_train.txt"), "--eval_every", "1",
+            "--save_every", "1", "--log_every", "1", "--seed", "0", "--output", out]
+    if not pil:
+        print("[12] Pillow is not installed on this machine: the disk path reads cache "
+              "entries written here, and PNG decoding is held by the CPU tests only",
+              flush=True)
+        write_chest_cache(tree, os.path.join(out, "chest_cache"))
+        argv += ["--chest_canvas", "1024"]
+    write_s = time.perf_counter() - t0
+    steps = CHEST_IMAGES // BATCH2D
+    reads, runs = [], [(argv + ["--epochs", "1"], 2),
+                       (argv + ["--epochs", "2", "--resume", os.path.join(out, "train_state")], 1)]
+    for run_argv, epochs in runs:
+        model, cfg, loaders, aug_fn, device = prepare(run_argv)
+        reader = loaders["train"].read_fn
+        _build.launches.clear()
+        run_training(model, cfg, loaders["train"], aug_fn, device, eval_loader=loaders["eval"])
+        torch.cuda.synchronize()
+        no_launches("2D disk CLI")
+        reads.append({"decoded": reader.decoded, "cached": reader.cached})
+    # every read: each epoch's train pass and eval pass over every image
+    if pil and reads[0] != {"decoded": CHEST_IMAGES, "cached": 3 * CHEST_IMAGES}:
+        raise AssertionError(f"first run's reads {reads[0]}")
+    if reads[1] != {"decoded": 0, "cached": 2 * CHEST_IMAGES}:
+        raise AssertionError(f"the resumed run decoded or missed images: {reads[1]}")
+    rows = [json.loads(s) for s in open(os.path.join(out, "metrics.jsonl"))]
+    per_epoch = {e: step_rows(os.path.join(out, "metrics.jsonl"), e)[1] for e in (0, 1, 2)}
+    if [len(v) for v in per_epoch.values()] != [steps] * 3:
+        raise AssertionError(f"steps per epoch {[len(v) for v in per_epoch.values()]}")
+    evals = [r for r in rows if "eval" in r]
+    if [r["epoch"] for r in evals] != [0, 1, 2] or not all(
+            math.isfinite(v) for r in evals for v in r["eval"].values()):
+        raise AssertionError(f"eval rows {evals}")
+    state = torch.load(os.path.join(out, "train_state", "state.pt"), weights_only=True)
+    if (state["epoch"], state["step"]) != (2, 3 * steps):
+        raise AssertionError(f"train state at epoch {state['epoch']} step {state['step']}")
+    import_resnet18_encoder(os.path.join(out, "pcrlv2_chest_pretask_1.0_0.pt"),
+                            ResNet18Encoder(device="cuda", seed=1))
+    return {"pillow": pil, "tree_write_s": write_s, "reads": reads,
+            "step_s": [step_times(per_epoch[e]) for e in (0, 1, 2)],
+            "dt_s": [[r["DT"] for r in per_epoch[e]] for e in (0, 1, 2)],
+            "evals": [r["eval"] for r in evals]}
+
+
+def run_bench2d() -> dict:
+    """Phase 12: the bench at ``BENCH_DIM=2`` for ``BENCH2D_RUNS``."""
+    import gc
+
+    import torch
+
+    from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from pcrlv2_tpu_torch.data.pipeline import synthetic_chest_batch
+    from pcrlv2_tpu_torch.tools import bench
+
+    out = {}
+    for name, size, amp in BENCH2D_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if name == "b64_amp":
+            with contextlib.ExitStack() as env:
+                for k, v in {**BENCH_ENV, "BENCH_BATCH": str(size), "BENCH_DIM": "2"}.items():
+                    env.enter_context(env_var(k, v))
+                r = bench.main()
+        else:
+            r = bench.run(synthetic_chest_batch(2 * size),
+                          DEFAULT_POLICY if amp else PARITY_POLICY,
+                          warmup=int(BENCH_ENV["BENCH_WARMUP"]),
+                          steps=int(BENCH_ENV["BENCH_STEPS"]),
+                          trials=int(BENCH_ENV["BENCH_TRIALS"]), device="cuda")
+        no_launches(f"2D bench {name}")
         out[name] = dict(r, wall_s=time.perf_counter() - t0)
     return out
 
@@ -1663,6 +2006,58 @@ def main() -> int:
         surface["phase_s"] = time.perf_counter() - t11
         print(f"[11] phase 11 took {surface['phase_s']:.1f} s", flush=True)
 
+        print("[12] the 2D chest path (--d 2 --n chest)", flush=True)
+        t12 = time.perf_counter()
+        chest = {}
+        f32_2d, bf16_2d = model2d_reference_check()
+        chest["model_check"] = {"f32": f32_2d, "bf16": bf16_2d}
+        print(f"[12] PCRLv2 forward on the card vs CPU (of the largest entry): f32 " + ", ".join(
+            f"{k} {v:.2e}" for k, v in f32_2d.items()) + "; bf16 from the CPU's f32 vs limit: "
+            + ", ".join(f"{k} {v['card_vs_cpu_f32']:.2e} vs {v['limit']:.2e}"
+                        for k, v in bf16_2d.items()), flush=True)
+        for name, amp in (("f32", False), ("amp", True)):
+            with tempfile.TemporaryDirectory() as tmp:
+                chest[name] = r = run_cli2d(amp, tmp)
+                profiles["chest_" + name] = p = profile_cli(
+                    cli2d_argv(amp, os.path.join(tmp, "prof"), PROFILE_STEPS),
+                    r["step_s_median"], groups=GROUPS2D)
+            print(f"[12] CLI --d 2 --n chest --b {BATCH2D}{' --amp' if amp else ''}: launches "
+                  f"of #1-#10 all 0, step s {[round(x, 4) for x in r['step_s']]} (median after "
+                  f"{WARMUP}: {r['step_s_median']:.4f}), DT {[round(x, 4) for x in r['dt_s']]}, "
+                  f"captures {[round(c, 3) for c in r['capture_s']]} s, losses "
+                  f"{[round(x, 5) for x in r['losses']]}, peak {r['peak_mem_gib']:.2f} GiB",
+                  flush=True)
+            print_profile("chest_" + name, p)
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, amp in (("f32", False), ("amp", True)):
+                chest["identity_" + name] = g = graph_identity2d(amp, os.path.join(tmp, name))
+                print(f"[12] 2D {name}: {g['steps']} steps over two epochs, {g['graphs']} graphs "
+                      f"captured in {[round(c, 3) for c in g['capture_s']]} s: all {g['leaves']} "
+                      f"leaves bit-identical to the eager loop, no kernel of #1-#10 launched; "
+                      f"then {SYNC_STEPS} steps under set_sync_debug_mode('error'), host s a "
+                      f"step: eager {[round(x, 4) for x in g['host_s_eager']]}, graph "
+                      f"{[round(x, 5) for x in g['host_s_graph']]}", flush=True)
+        chest["sync_free_step"] = sync2d = sync_free_step2d()
+        print(f"[12] one 2D train_step under set_sync_debug_mode('error'): no sync; loss "
+              f"{sync2d['loss']:.5f}, host {sync2d['host_s']:.4f} s to enqueue", flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            chest["disk"] = d = run_disk2d(tmp)
+        print(f"[12] 2D disk CLI ({CHEST_IMAGES} 1024² images, "
+              f"{'PNGs decoded by Pillow' if d['pillow'] else 'cache entries written here'}): "
+              f"epochs 0-1 trained, evaluated and saved, resumed at epoch 2; reads "
+              f"{d['reads']} (the resumed run decoded none); step s "
+              f"{[[round(x, 4) for x in e] for e in d['step_s']]}, DT "
+              f"{[[round(x, 4) for x in e] for e in d['dt_s']]}; eval losses "
+              f"{[round(e['loss'], 5) for e in d['evals']]}", flush=True)
+        chest["bench"] = benches2d = run_bench2d()
+        for name, r in benches2d.items():
+            print(f"[12] bench {name}: {r['value']} {r['unit']} (trials {r['trials']}"
+                  f"{', ' + r['spread_warning'] if 'spread_warning' in r else ''}), peak "
+                  f"{r['peak_memory_gib']:.2f} GiB, batch {r['batch']} {r['compute_dtype']}, "
+                  f"{r['device']}, {r['wall_s']:.1f} s", flush=True)
+        chest["phase_s"] = time.perf_counter() - t12
+        print(f"[12] phase 12 took {chest['phase_s']:.1f} s", flush=True)
+
         kernels = [kernel_entry(name, src, replaces, runs[LAUNCHED_IN[name]]["counts"][name],
                                 summary[name]) for name, (src, replaces) in KERNELS.items()]
         kernels += [kernel_entry(name, src, replaces, tools["counts"][name], tool_summary[name])
@@ -1675,7 +2070,7 @@ def main() -> int:
                        "runs": runs, "sync_free_step": sync, "profiles": profiles,
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
                        "tool_odd_rows": tool_odd_rows, "tool_summary": tool_summary,
-                       "graph": graph, "surface": surface}, fh,
+                       "graph": graph, "surface": surface, "chest": chest}, fh,
                       indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1
         traceback.print_exc()

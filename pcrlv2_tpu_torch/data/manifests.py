@@ -1,6 +1,7 @@
-"""LUNA file lists with the reference's conventions (copy of
-``pcrlv2_tpu/data/manifests.py``; reference ``utils.py:22-57``).
+"""File lists with the reference's conventions (copy of
+``pcrlv2_tpu/data/manifests.py``; reference ``utils.py:7-57``).
 
+* ``chest_train.txt`` — lines of ``img.png l1 … l14`` (14 binary labels)
 * ``luna_train.txt``  — one LUNA series UID per line
 * processed LUNA tree — ``subset{0..9}/{uid}_global_{k}.npy`` (2, 64, 64, 32)
   and ``{uid}_local_{k}.npy`` (6, 16, 16, 16)
@@ -10,6 +11,20 @@ from __future__ import annotations
 
 import os
 from typing import List, Sequence, Tuple
+
+
+def get_chest_list(txt_path: str, data_dir: str) -> Tuple[List[str], List[List[int]]]:
+    """Image paths under ``data_dir`` and their labels from ``name + 14 binary
+    labels`` lines (reference ``utils.py:7-19``)."""
+    image_names, labels = [], []
+    with open(txt_path) as f:
+        for line in f:
+            items = line.split()
+            if not items:
+                continue
+            image_names.append(os.path.join(data_dir, items[0]))
+            labels.append([int(i) for i in items[1:]])
+    return image_names, labels
 
 
 def get_luna_pretrain_list(ratio: float,

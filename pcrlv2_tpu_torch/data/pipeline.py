@@ -1,11 +1,11 @@
-"""Host→device input pipeline of the 3D path (port of
-``pcrlv2_tpu/data/pipeline.py``).
+"""Host→device input pipeline (port of ``pcrlv2_tpu/data/pipeline.py``).
 
-Augmentation runs on the device, so the host only reads raw crops and
-batches them (``HostLoader``: per sample with ``load_luna_sample`` on a
-thread pool, or a batch at a time with ``LunaBatchReader``, the native C++
-reader of ``pcrlv2_tpu_torch/native.py``), and keeps the next batches in
-flight while the device computes (``device_prefetch``).  The finetune mask
+Augmentation runs on the device, so the host only reads raw crops or images
+and batches them (``HostLoader``: per sample on a thread pool —
+``load_luna_sample``, or ``load_chest_sample`` / ``CachedChestReader`` for
+chest X-rays — or, for LUNA, a batch at a time with ``LunaBatchReader``, the
+native C++ reader of ``pcrlv2_tpu_torch/native.py``), and keeps the next
+batches in flight while the device computes (``device_prefetch``).  The finetune mask
 reader (``pcrlv2_tpu/data/pipeline.py::make_luna_mask_reader``) is not
 ported yet.
 """
@@ -39,6 +39,76 @@ def load_luna_sample(global_path: str, dtype=np.float32) -> dict:
     pair = np.load(global_path)
     local = np.load(global_path.replace("global", "local"))
     return {"pair": np.asarray(pair, dtype), "locals": np.asarray(local, dtype)}
+
+
+def load_chest_sample(image_path: str, canvas: int = 512) -> dict:
+    """A chest X-ray decoded to grey (PIL ``convert('L')``, whatever the
+    container: NIH mixes L and RGBA PNGs), bilinearly resized to
+    ``canvas``² unless it is that size, as uint8 (H, W, 1): the device
+    divides by 255 and broadcasts to RGB (reference ``chestDataset.py:33``
+    decodes with PIL too).  Pillow is imported here, and only here and in
+    the CLI's canvas detection."""
+    try:
+        from PIL import Image
+    except ImportError as err:
+        raise ImportError("decoding chest X-rays needs Pillow (PIL), which is not "
+                          "installed; a CachedChestReader cache written elsewhere "
+                          "is read without it") from err
+    with Image.open(image_path) as im:
+        im = im.convert("L")
+        if im.size != (canvas, canvas):
+            im = im.resize((canvas, canvas), Image.BILINEAR)
+        arr = np.asarray(im, np.uint8)
+    return {"image": arr[..., None]}
+
+
+class CachedChestReader:
+    """``load_chest_sample`` once per image: the first read decodes and writes
+    the uint8 array to ``<cache>/<name>.<hash>.c<canvas>.npy`` (tmp +
+    rename); every later read is an ``np.load`` (the reference re-decodes
+    every PNG every epoch).  The hash is of the source's absolute path, so
+    two ``img.png`` in different directories do not meet; an entry of
+    another shape (an older layout) or a torn one is decoded again.
+    ``decoded`` and ``cached`` count the reads of each kind (the loader's
+    threads count under a lock)."""
+
+    def __init__(self, cache_dir: str, canvas: int):
+        self.cache_dir = cache_dir
+        self.canvas = canvas
+        self.decoded = 0
+        self.cached = 0
+        self._count = threading.Lock()
+        os.makedirs(cache_dir, exist_ok=True)
+
+    def cache_path(self, image_path: str) -> str:
+        import hashlib
+
+        base = os.path.splitext(os.path.basename(image_path))[0]
+        tag = hashlib.blake2s(os.path.abspath(image_path).encode(), digest_size=4).hexdigest()
+        return os.path.join(self.cache_dir, f"{base}.{tag}.c{self.canvas}.npy")
+
+    def __call__(self, image_path: str) -> dict:
+        cpath = self.cache_path(image_path)
+        try:
+            arr = np.load(cpath)
+            if arr.shape == (self.canvas, self.canvas, 1):
+                with self._count:
+                    self.cached += 1
+                return {"image": arr}
+        except (FileNotFoundError, ValueError, EOFError):
+            pass
+        sample = load_chest_sample(image_path, canvas=self.canvas)
+        with self._count:
+            self.decoded += 1
+        tmp = f"{cpath}.tmp.{os.getpid()}.{threading.get_ident()}"
+        try:
+            with open(tmp, "wb") as f:  # a handle: np.save(str) appends ".npy"
+                np.save(f, sample["image"])
+            os.replace(tmp, cpath)
+        except OSError:  # a read-only or full cache directory: decode each time
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return sample
 
 
 class LunaBatchReader:
@@ -230,6 +300,13 @@ def synthetic_luna_batch(batch_size: int = 32, size=(64, 64, 32),
         "pair": rng.rand(batch_size, 2, *size).astype(np.float32),
         "locals": rng.rand(batch_size, n_views, *local).astype(np.float32),
     }
+
+
+def synthetic_chest_batch(batch_size: int = 64, canvas: int = 512, seed: int = 0):
+    """A raw chest batch: ``image`` (B, canvas, canvas, 3) float32 in [0, 1)
+    (the JAX package's ``synthetic_chest_batch``, bit for bit)."""
+    rng = np.random.RandomState(seed)
+    return {"image": rng.rand(batch_size, canvas, canvas, 3).astype(np.float32)}
 
 
 def write_synthetic_luna_tree(root: str, n_subsets: int = 10,

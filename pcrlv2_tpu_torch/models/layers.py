@@ -1,8 +1,10 @@
-"""Building blocks of the 3D model (port of ``pcrlv2_tpu/models/layers.py``).
+"""Building blocks of the 3D and 2D models (port of
+``pcrlv2_tpu/models/layers.py``).
 
 Parameters keep the reference torch layouts and names; activations are
-NDHWC.  Initializers draw from the same distributions as the JAX package
-(torch defaults), from an explicit ``torch.Generator``.
+NDHWC / NHWC.  Initializers draw from the same distributions as the JAX
+package (torch defaults; torchvision's and the 2D decoder's schemes for the
+2D model, ``CONV2D_INITS``), from an explicit ``torch.Generator``.
 
 Normalization follows flax, not ``torch.nn.BatchNorm``: the batch variance
 is ``E[x²] − E[x]²`` clipped at 0, and the running variance is updated with
@@ -18,13 +20,39 @@ import torch
 import torch.nn as nn
 
 from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, Policy
-from pcrlv2_tpu_torch.ops.convolution import conv3d, conv_transpose3d
+from pcrlv2_tpu_torch.ops.convolution import conv2d, conv3d, conv_transpose3d
 
 
 def _uniform(shape, bound: float, gen: torch.Generator) -> nn.Parameter:
     t = torch.empty(shape, dtype=torch.float32)
     t.uniform_(-bound, bound, generator=gen)
     return nn.Parameter(t)
+
+
+def _normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
+    t = torch.empty(shape, dtype=torch.float32)
+    t.normal_(0.0, std, generator=gen)
+    return nn.Parameter(t)
+
+
+def _xavier(shape, gen: torch.Generator) -> nn.Parameter:
+    """xavier_uniform over (out, in, *kernel): U(±√(6/(fan_in + fan_out)))."""
+    field = math.prod(shape[2:])
+    return _uniform(shape, math.sqrt(6.0 / ((shape[0] + shape[1]) * field)), gen)
+
+
+#: weight initializers of ``Conv2d`` (the JAX package's ``kernel_init``s):
+#: ``kaiming_normal_fan_out`` torchvision's ResNet init N(0, 2/fan_out)
+#: (``pcrlv2_tpu/models/resnet.py:29``, a truncated normal there);
+#: ``kaiming_uniform_relu`` the 2D decoder's U(±√(6/fan_in)); ``xavier`` the
+#: segmentation head's
+CONV2D_INITS = {
+    "kaiming_normal_fan_out": lambda shape, gen: _normal(
+        shape, math.sqrt(2.0 / (shape[0] * math.prod(shape[2:]))), gen),
+    "kaiming_uniform_relu": lambda shape, gen: _uniform(
+        shape, math.sqrt(6.0 / math.prod(shape[1:])), gen),
+    "xavier": _xavier,
+}
 
 
 def _normalize(x, mean, var, weight, bias, eps, dtype):
@@ -144,6 +172,23 @@ class Conv3d(nn.Module):
         return conv3d(self.policy.cast_to_compute(x), self.weight, self.bias)
 
 
+class Conv2d(nn.Module):
+    """``nn.Conv2d(k, stride, padding=k//2)`` over NHWC via ``ops.conv2d``;
+    weight drawn by ``CONV2D_INITS[init]``, bias (``bias=True``) zero."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int, policy: Policy,
+                 gen: torch.Generator, *, init: str, stride: int = 1, bias: bool = False):
+        super().__init__()
+        self.policy = policy
+        self.stride = stride
+        self.weight = CONV2D_INITS[init]((features, cin, kernel_size, kernel_size), gen)
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+
+    def forward(self, x):
+        return conv2d(self.policy.cast_to_compute(x), self.weight, self.bias,
+                      stride=self.stride)
+
+
 class ConvTranspose3d(nn.Module):
     """``nn.ConvTranspose3d(k=2, stride=2)`` over NDHWC; init
     U(±√(1/(Co·k³))) for weight and bias."""
@@ -163,15 +208,20 @@ class ConvTranspose3d(nn.Module):
 
 class Dense(nn.Module):
     """``nn.Linear``; the product accumulates in f32 and the bias is added in
-    f32 before the cast to the compute dtype."""
+    f32 before the cast to the compute dtype.  Torch's init, or with
+    ``xavier`` the 2D decoder's (xavier-uniform weight, zero bias)."""
 
     def __init__(self, cin: int, features: int, policy: Policy,
-                 gen: torch.Generator):
+                 gen: torch.Generator, xavier: bool = False):
         super().__init__()
         self.policy = policy
-        bound = math.sqrt(1.0 / cin)
-        self.weight = _uniform((features, cin), bound, gen)
-        self.bias = _uniform((features,), bound, gen)
+        if xavier:
+            self.weight = _xavier((features, cin), gen)
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            bound = math.sqrt(1.0 / cin)
+            self.weight = _uniform((features, cin), bound, gen)
+            self.bias = _uniform((features,), bound, gen)
 
     def forward(self, x):
         x = self.policy.cast_to_compute(x)
@@ -181,13 +231,16 @@ class Dense(nn.Module):
 
 class MLPHead(nn.Module):
     """Predictor head Linear(c→2c) → BN1d → ReLU → Linear(2c→c); children
-    named ``0``, ``1``, ``3`` as in the reference ``nn.Sequential``."""
+    named ``0``, ``1``, ``3`` as in the reference ``nn.Sequential``.
+    ``decoder_init``: the 2D decoder's xavier Linears (reference
+    ``pcrlv2_model.py:23-38``)."""
 
-    def __init__(self, channels: int, policy: Policy, gen: torch.Generator):
+    def __init__(self, channels: int, policy: Policy, gen: torch.Generator,
+                 decoder_init: bool = False):
         super().__init__()
-        self.add_module("0", Dense(channels, 2 * channels, policy, gen))
+        self.add_module("0", Dense(channels, 2 * channels, policy, gen, decoder_init))
         self.add_module("1", BatchNorm(2 * channels, policy))
-        self.add_module("3", Dense(2 * channels, channels, policy, gen))
+        self.add_module("3", Dense(2 * channels, channels, policy, gen, decoder_init))
 
     def forward(self, x):
         x = self._modules["1"](self._modules["0"](x))

@@ -96,6 +96,10 @@ class PCRLv23d(nn.Module):
     drawn from ``seed``.
     """
 
+    #: SimSiam levels (decoder stages) and the spatial rank of the input
+    n_levels = 3
+    dim = 3
+
     def __init__(self, n_class: int = 1, act: str = "relu", norm: str = "bn",
                  in_channels: int = 1, policy: Policy = DEFAULT_POLICY,
                  upsample_masks: bool = True, seed: int = 0, device=None):

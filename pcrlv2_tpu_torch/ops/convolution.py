@@ -1,8 +1,13 @@
-"""Channels-last convolutions of the 3D model (port of
-``pcrlv2_tpu/ops/convolution.py``).
+"""Channels-last convolutions (port of ``pcrlv2_tpu/ops/convolution.py``).
 
-Activations are NDHWC; weights keep the reference torch layouts
-(Conv3d (Co, Ci, k, k, k), ConvTranspose3d (Ci, Co, k, k, k)).
+Activations are NDHWC / NHWC; weights keep the reference torch layouts
+(Conv3d (Co, Ci, k, k, k), ConvTranspose3d (Ci, Co, k, k, k), Conv2d
+(Co, Ci, k, k)).
+
+The 2D convs of the chest model are XLA's in the JAX package
+(``lax.conv_general_dilated``), not a Pallas kernel, so here they are
+cuDNN's (``conv2d``), fed channels-last strides; ``deterministic_cudnn``
+sets what their CUDA graphs and f32 parity need.
 
 Dispatch, by shape and ``PCRL_CONV3D`` (``conv_impl``):
 
@@ -23,6 +28,7 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.nn.functional as F
 
 from pcrlv2_tpu_torch.ops.conv3d_kernel import conv3d as conv3d_pallas
 from pcrlv2_tpu_torch.ops.conv3d_packed import conv3d_im2col, conv3d_packed
@@ -80,6 +86,32 @@ def conv_transpose3d(x: torch.Tensor, w: torch.Tensor,
     y = x.reshape(-1, ci) @ w.reshape(ci, co * s ** 3).to(x.dtype)
     y = y.reshape(bsz, d, h, wd, co, s, s, s).permute(0, 1, 5, 2, 6, 3, 7, 4)
     out = y.reshape(bsz, d * s, h * s, wd * s, co)
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return out
+
+
+def deterministic_cudnn() -> None:
+    """cuDNN as the 2D path needs it, for the whole process (a conv's
+    backward runs on autograd's thread, outside any context manager):
+    deterministic algorithms, so a CUDA graph's replay equals the eager
+    step bit for bit; no autotuning (``benchmark``), which would pick by
+    timing; and no TF32, so an f32 conv is f32 (a bf16 one is unaffected)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+           stride: int = 1) -> torch.Tensor:
+    """``nn.Conv2d(k, stride, padding=k//2)`` over NHWC ``x``, weight (Co, Ci,
+    k, k) cast to ``x.dtype``; the bias is added after the conv, in the
+    output's dtype (as ``pcrlv2_tpu/ops/convolution.py:146``).  ``x``
+    permuted to NCHW has channels-last strides, so cuDNN reads it as it lies
+    and its output, permuted back, is NHWC without a copy."""
+    k = w.shape[-1]
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), stride=stride,
+                   padding=k // 2).permute(0, 2, 3, 1)
     if b is not None:
         out = out + b.to(out.dtype)
     return out

@@ -1,4 +1,4 @@
-"""Pooling over NDHWC (port of ``pcrlv2_tpu/ops/pooling.py``)."""
+"""Pooling over NDHWC / NHWC (port of ``pcrlv2_tpu/ops/pooling.py``)."""
 
 from __future__ import annotations
 
@@ -14,6 +14,16 @@ def max_pool3d(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1)
 
 
+def max_pool2d(x: torch.Tensor) -> torch.Tensor:
+    """The ResNet stem's 3×3 stride-2 max pool of NHWC, padded by 1 with −inf
+    (torch semantics).  The windows overlap, so an input can take gradient
+    from several of them; in each window it goes to the FIRST max in (h, w)
+    order, as the JAX package's ``reduce_window`` gradient does (ties are
+    common after ReLU)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=3, stride=2, padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """(B, D, H, W, C) → (B, C); the mean accumulates in f32."""
-    return x.float().mean(dim=(1, 2, 3)).to(x.dtype)
+    """(B, *spatial, C) → (B, C); the mean accumulates in f32."""
+    return x.float().mean(dim=tuple(range(1, x.ndim - 1))).to(x.dtype)

@@ -16,8 +16,16 @@ def interp_matrix(n: int, scale: int, device=None) -> torch.Tensor:
     return torch.clamp(1.0 - torch.abs(src[:, None] - i[None, :]), min=0.0)
 
 
+def upsample_nearest2x_2d(x: torch.Tensor) -> torch.Tensor:
+    """×2 nearest upsample of NHWC (torch ``mode='nearest'``), as a broadcast
+    and a reshape: its gradient sums each 2×2 block, in a fixed order (an
+    index-based repeat's backward would add with atomics on the card)."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
 def upsample_linear(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """Trilinear ×``scale`` upsample of NDHWC with half-pixel source
+    """Bi- or trilinear ×``scale`` upsample of NHWC / NDHWC with half-pixel source
     coordinates (``align_corners=False``), the same map as
     ``jax.image.resize(method='linear')`` at an integer scale and, like it,
     one axis at a time: a product with ``interp_matrix`` per axis, in f32.

@@ -1,7 +1,8 @@
-"""Throughput of 3D pretraining on one GPU: the port's counterpart of the
-JAX package's ``bench.py`` (``BENCH_DIM=3``).
+"""Throughput of pretraining on one GPU: the port's counterpart of the JAX
+package's ``bench.py``.
 
     python -m pcrlv2_tpu_torch.tools.bench
+    BENCH_DIM=2 python -m pcrlv2_tpu_torch.tools.bench
 
 The whole train step at the reference's operating point (``run3d.sh``:
 b = 32, 64×64×32 crop pairs and six 16³ local crops), ``PCRLv23d`` under
@@ -9,16 +10,20 @@ b = 32, 64×64×32 crop pairs and six 16³ local crops), ``PCRLv23d`` under
 policy and the port's ``--amp``), on a synthetic batch on the device.  The
 loop is the trainer's own (``Trainer.step``): the step plus the next
 batch's augmentation (``pipelined_train_step``) as CUDA graphs
-(``CapturedStep``, captured after ``GRAPH_WARMUP`` eager steps).  ``BENCH_WARMUP`` steps
+(``CapturedStep``, captured after ``GRAPH_WARMUP`` eager steps).
+``BENCH_DIM=2`` times the 2D chest step instead, as ``bench.py:60-105``
+does: ``PCRLv2`` on 224² global and 96² local views of
+``make_chest_aug_fn``, from ``synthetic_chest_batch`` (float RGB on a 512²
+canvas) at 2 × ``BENCH_BATCH`` images (``run2d.sh``'s b = 64 by default);
+the value is images/s.  ``BENCH_WARMUP`` steps
 (at least ``GRAPH_WARMUP`` + 1, so the capture is among them), then
 ``BENCH_TRIALS`` trials of ``BENCH_STEPS`` steps, each closed by
 ``torch.cuda.synchronize()``; the value is the median trial's volumes/s.
 
 Environment (names and defaults of ``bench.py``): ``BENCH_BATCH`` (32),
 ``BENCH_WARMUP`` (3), ``BENCH_STEPS`` (20), ``BENCH_TRIALS`` (3),
-``BENCH_LAZY_MASKS=1`` (``upsample_masks=False``).  ``BENCH_DIM=2`` and
-``BENCH_REMAT=1`` raise: the port has neither the 2D model nor activation
-checkpointing yet.  ``BENCH_PRNG`` selects a ``jax.random`` key
+``BENCH_LAZY_MASKS=1`` (``upsample_masks=False``), ``BENCH_DIM`` (3 or 2).
+``BENCH_REMAT=1`` raises: the port has no activation checkpointing yet.  ``BENCH_PRNG`` selects a ``jax.random`` key
 implementation, which has no counterpart here, and raises too.
 
 Prints one JSON line: ``metric``, ``value``, ``unit``, ``trials`` and,
@@ -49,15 +54,18 @@ import torch
 
 from pcrlv2_tpu_torch.core.device import resolve_device
 from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from pcrlv2_tpu_torch.data.augment2d import make_chest_aug_fn
 from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
-from pcrlv2_tpu_torch.data.pipeline import synthetic_luna_batch
+from pcrlv2_tpu_torch.data.pipeline import synthetic_chest_batch, synthetic_luna_batch
+from pcrlv2_tpu_torch.models.unet2d import PCRLv2
 from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 from pcrlv2_tpu_torch.train.optimizer import cosine_lr
 from pcrlv2_tpu_torch.train.trainer import GRAPH_WARMUP, TrainConfig, Trainer
 from pcrlv2_tpu_torch.utils import chiplock
 
-METRIC = "3d_pretrain_volumes_per_sec_per_chip"
-UNIT = "volumes/sec/chip"
+#: (metric, unit) of each BENCH_DIM, as bench.py names them
+METRICS = {3: ("3d_pretrain_volumes_per_sec_per_chip", "volumes/sec/chip"),
+           2: ("2d_pretrain_imgs_per_sec_per_chip", "imgs/sec/chip")}
 
 
 def device_label(device: torch.device) -> str:
@@ -78,21 +86,27 @@ def device_label(device: torch.device) -> str:
 def run(batch: dict, policy: Policy, *, warmup: int = 3, steps: int = 20, trials: int = 3,
         device=None, upsample_masks: bool = True) -> dict:
     """Time the trainer's step (``Trainer.step``: the pipelined step, on CUDA
-    graphs after ``GRAPH_WARMUP`` eager steps) on ``batch`` (raw crops:
-    ``pair`` (B, 2, X, Y, Z), ``locals`` (B, V, x, y, z)) under ``policy``,
-    at epoch 0's learning rate; prints the JSON line and returns it as a
-    dict.  The trainer's ``metrics.jsonl`` goes to a temporary directory."""
+    graphs after ``GRAPH_WARMUP`` eager steps) on ``batch`` under
+    ``policy``, at epoch 0's learning rate: raw LUNA crops (``pair`` (B, 2,
+    X, Y, Z), ``locals`` (B, V, x, y, z)) train ``PCRLv23d``, a chest batch
+    (``image`` (B, canvas, canvas, C)) ``PCRLv2``, each through its
+    pipeline's augmentation.  Prints the JSON line and returns it as a
+    dict.  The trainer's ``metrics.jsonl`` goes to a
+    temporary directory."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-    size = batch["pair"].shape[0]
+    dim = 2 if "image" in batch else 3
+    size = next(iter(batch.values())).shape[0]
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    model = PCRLv23d(policy=policy, upsample_masks=upsample_masks, seed=0, device=dev)
+    build, aug_fn = ((PCRLv2, make_chest_aug_fn()) if dim == 2
+                     else (PCRLv23d, make_luna_aug_fn()))
+    model = build(policy=policy, upsample_masks=upsample_masks, seed=0, device=dev)
     with tempfile.TemporaryDirectory() as out:
         cfg = TrainConfig(b=size, epochs=0, output=out, seed=0,
                           amp=policy.compute_dtype == torch.bfloat16)
-        trainer = Trainer(model, cfg, make_luna_aug_fn(), dev)
+        trainer = Trainer(model, cfg, aug_fn, dev)
         try:
             trainer.lr.fill_(cosine_lr(0, cfg.lr, cfg.epochs))
             # on the card the capture falls in the warm-up
@@ -104,7 +118,8 @@ def run(batch: dict, policy: Policy, *, warmup: int = 3, steps: int = 20, trials
     if not math.isfinite(loss):
         raise RuntimeError(f"the benchmarked step's loss is {loss}")
     value = sorted(rates)[len(rates) // 2]  # the median of an odd count, as bench.py
-    out = {"metric": METRIC, "value": round(value, 3), "unit": UNIT,
+    metric, unit = METRICS[dim]
+    out = {"metric": metric, "value": round(value, 3), "unit": unit,
            "trials": [round(r, 3) for r in sorted(rates)]}
     spread = (max(rates) - min(rates)) / value
     if spread > 0.10:
@@ -119,10 +134,11 @@ def run(batch: dict, policy: Policy, *, warmup: int = 3, steps: int = 20, trials
 
 def _timed(trainer: Trainer, batch: dict, warmup: int, steps: int, trials: int):
     """``warmup`` steps, then ``trials`` timed runs of ``steps`` steps, each
-    step augmenting ``batch`` for the next; returns (volumes/s of each
-    trial, the last step's metrics)."""
+    step augmenting ``batch`` for the next; returns (volumes or images a
+    second of each trial, the last step's metrics)."""
     views = trainer.aug_fn(trainer.aug_gen, batch)
     cuda = trainer.device.type == "cuda"
+    size = next(iter(batch.values())).shape[0]
 
     def sync():
         if cuda:
@@ -137,7 +153,7 @@ def _timed(trainer: Trainer, batch: dict, warmup: int, steps: int, trials: int):
         for _ in range(steps):
             metrics, views = trainer.step(views, batch)
         sync()
-        rates.append(batch["pair"].shape[0] * steps / (time.perf_counter() - t0))
+        rates.append(size * steps / (time.perf_counter() - t0))
     return rates, metrics
 
 
@@ -147,9 +163,9 @@ def _env_int(name: str, default: int) -> int:
 
 def main(device=None) -> dict:
     """The bench as ``bench.py`` runs it, from the ``BENCH_*`` variables."""
-    if _env_int("BENCH_DIM", 3) != 3:
-        raise SystemExit("BENCH_DIM=2 needs the 2D model (pcrlv2_tpu/models/unet2d.py, "
-                         "pcrlv2_tpu/data/augment2d.py), which the port has not yet")
+    dim = _env_int("BENCH_DIM", 3)
+    if dim not in METRICS:
+        raise SystemExit(f"BENCH_DIM={dim}: expected 3 or 2")
     if os.environ.get("BENCH_REMAT", "0") == "1":
         raise SystemExit("BENCH_REMAT=1 needs activation checkpointing in the port's "
                          "PCRLv23d, which it has not yet")
@@ -160,7 +176,9 @@ def main(device=None) -> dict:
     kwargs = dict(warmup=_env_int("BENCH_WARMUP", 3), steps=_env_int("BENCH_STEPS", 20),
                   trials=max(1, _env_int("BENCH_TRIALS", 3)), device=dev,
                   upsample_masks=os.environ.get("BENCH_LAZY_MASKS", "0") != "1")
-    batch = synthetic_luna_batch(_env_int("BENCH_BATCH", 32))
+    size = _env_int("BENCH_BATCH", 32)
+    # bench.py times the 2D step at twice BENCH_BATCH (run2d.sh's b = 64)
+    batch = synthetic_chest_batch(2 * size) if dim == 2 else synthetic_luna_batch(size)
     if dev.type != "cuda":
         return run(batch, DEFAULT_POLICY, **kwargs)
     with chiplock.guard_exclusive("pcrlv2_tpu_torch.tools.bench"):

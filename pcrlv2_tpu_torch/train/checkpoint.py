@@ -1,11 +1,16 @@
 """Reference-schema ``.pt`` checkpoints, the train state for resume, and the
 bridge from JAX variables (port of ``pcrlv2_tpu/train/checkpoint.py``).
 
-The port's ``PCRLv23d.state_dict()`` already is the reference schema, so a
-``.pt`` is ``{'opt', 'state_dict', 'optimizer', 'epoch'}`` written by
-``torch.save`` (reference ``train_3d.py:74-75``).  ``from_jax_variables``
-carries the JAX package's ``params``/``batch_stats`` trees (numpy leaves)
-into that schema; the mapping table is a copy of ``pcrlv23d_mapping``.
+The port's ``PCRLv23d.state_dict()`` and ``PCRLv2.state_dict()`` already are
+the reference schemas, so a ``.pt`` is ``{'opt', 'state_dict', 'optimizer',
+'epoch'}`` written by ``torch.save`` (reference ``train_3d.py:74-75``).  The
+2D model's ``.pt`` holds its encoder only, with torchvision's ResNet-18 key
+names (reference ``train_2d.py:99``: ``export_resnet18_encoder``), and
+``import_resnet18_encoder`` reads one, or a bare torchvision state_dict
+(``--encoder_weights``).  ``from_jax_variables`` carries the JAX package's
+``params``/``batch_stats`` trees (numpy leaves) into these schemas; the
+mapping tables are copies of ``pcrlv23d_mapping``, ``resnet18_encoder_mapping``
+and ``pcrlv2_2d_mapping``.
 
 The train state (``save_train_state``, the role of the JAX package's Orbax
 state) is one ``torch.save`` file, ``<state dir>/state.pt``: parameters and
@@ -15,6 +20,7 @@ levels an unbroken run would.
 
 Layouts (torch ← flax, channels-last):
   Conv3d  (O, I, kd, kh, kw) ← (kd, kh, kw, I, O)
+  Conv2d  (O, I, kh, kw)     ← (kh, kw, I, O)
   ConvT3d (I, O, kd, kh, kw) ← (kd, kh, kw, I, O)
   Linear  (O, I)             ← (I, O)
 """
@@ -30,6 +36,7 @@ import torch
 _F2T = {
     "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),
     "convT3d": lambda w: np.transpose(w, (3, 4, 0, 1, 2)),
+    "conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
     "linear": np.transpose,
     "id": lambda w: w,
     "stat": lambda w: w,
@@ -104,13 +111,70 @@ def pcrlv23d_mapping(norm: str = "bn", act: str = "relu"):
     return entries
 
 
+def resnet18_encoder_mapping():
+    """(torch_key, flax_path, kind) for every tensor of the ResNet-18 encoder
+    (torchvision names)."""
+    entries = [("conv1.weight", ("conv1", "kernel"), "conv2d")]
+    entries += _bn_entries("bn1", ("bn1",))
+    for stage in range(1, 5):
+        for blk in range(2):
+            t, f = f"layer{stage}.{blk}", f"layer{stage}_{blk}"
+            entries += [(f"{t}.conv1.weight", (f, "conv1", "kernel"), "conv2d"),
+                        (f"{t}.conv2.weight", (f, "conv2", "kernel"), "conv2d")]
+            entries += _bn_entries(f"{t}.bn1", (f, "bn1"))
+            entries += _bn_entries(f"{t}.bn2", (f, "bn2"))
+            if stage > 1 and blk == 0:
+                entries += [(f"{t}.downsample.0.weight", (f, "downsample_conv", "kernel"),
+                             "conv2d")]
+                entries += _bn_entries(f"{t}.downsample.1", (f, "downsample_bn"))
+    return entries
+
+
+def _conv2drelu_entries(tprefix: str, fpath: Tuple[str, ...]):
+    """smp ``Conv2dReLU`` = Sequential(conv without bias, BN, ReLU)."""
+    return ([(f"{tprefix}.0.weight", fpath + ("conv", "kernel"), "conv2d")]
+            + _bn_entries(f"{tprefix}.1", fpath + ("bn",)))
+
+
+def pcrlv2_2d_mapping():
+    """(torch_key, flax_path, kind) for every tensor of the 2D ``PCRLv2``."""
+    entries = [("model.encoder." + tkey, ("encoder",) + fpath, kind)
+               for tkey, fpath, kind in resnet18_encoder_mapping()]
+    for i in range(5):
+        t, f = f"model.decoder.blocks.{i}", (f"block{i}",)
+        entries += _conv2drelu_entries(f"{t}.conv1", f + ("conv1",))
+        entries += _conv2drelu_entries(f"{t}.conv2", f + ("conv2",))
+        entries += _bn_entries(f"{t}.bn", f + ("bn",))
+        entries += [
+            (f"{t}.deep_supervision_head.0.weight", f + ("ds_conv1", "kernel"), "conv2d"),
+            (f"{t}.deep_supervision_head.0.bias", f + ("ds_conv1", "bias"), "id"),
+        ]
+        entries += _bn_entries(f"{t}.deep_supervision_head.1", f + ("ds_bn",))
+        entries += [
+            (f"{t}.deep_supervision_head.3.weight", f + ("ds_conv2", "kernel"), "conv2d"),
+            (f"{t}.deep_supervision_head.3.bias", f + ("ds_conv2", "bias"), "id"),
+            (f"{t}.predictor_head.0.weight", f + ("predictor_head", "fc1", "kernel"), "linear"),
+            (f"{t}.predictor_head.0.bias", f + ("predictor_head", "fc1", "bias"), "id"),
+        ]
+        entries += _bn_entries(f"{t}.predictor_head.1", f + ("predictor_head", "bn"))
+        entries += [
+            (f"{t}.predictor_head.3.weight", f + ("predictor_head", "fc2", "kernel"), "linear"),
+            (f"{t}.predictor_head.3.bias", f + ("predictor_head", "fc2", "bias"), "id"),
+        ]
+    entries += [("model.segmentation_head.0.weight", ("segmentation_head", "kernel"), "conv2d"),
+                ("model.segmentation_head.0.bias", ("segmentation_head", "bias"), "id")]
+    return entries
+
+
 def from_jax_variables(variables: Mapping[str, Any], norm: str = "bn",
-                       act: str = "relu") -> Dict[str, torch.Tensor]:
-    """``{'params': …, 'batch_stats': …}`` of the JAX ``PCRLv23d`` (numpy
-    leaves) → the port's ``state_dict`` (CPU tensors).  BatchNorm step
-    counters have no flax analog and start at 0."""
+                       act: str = "relu", mapping=None) -> Dict[str, torch.Tensor]:
+    """``{'params': …, 'batch_stats': …}`` of a JAX model (numpy leaves) →
+    the port's ``state_dict`` (CPU tensors), by ``mapping`` (default: the
+    ``PCRLv23d`` table for ``norm`` and ``act``; ``pcrlv2_2d_mapping()`` for
+    ``PCRLv2``, ``resnet18_encoder_mapping()`` for its encoder).  BatchNorm
+    step counters have no flax analog and start at 0."""
     out: Dict[str, torch.Tensor] = {}
-    for tkey, fpath, kind in pcrlv23d_mapping(norm, act):
+    for tkey, fpath, kind in mapping or pcrlv23d_mapping(norm, act):
         node = variables["batch_stats" if kind == "stat" else "params"]
         for p in fpath:
             node = node[p]
@@ -146,6 +210,29 @@ def import_pcrlv23d(path: str, model: torch.nn.Module) -> Dict[str, Any]:
     checkpoint dict."""
     ckpt = load_reference_checkpoint(path)
     model.load_state_dict(ckpt["state_dict"], strict=True)
+    return ckpt
+
+
+def export_resnet18_encoder(encoder: torch.nn.Module, path: str, opt=None,
+                            epoch: int = 0) -> None:
+    """The 2D model's ``.pt``: its encoder's ``state_dict`` (torchvision key
+    names, BN counters included), as reference ``train_2d.py:99`` saves it."""
+    save_reference_checkpoint(path, encoder.state_dict(), opt=opt, epoch=epoch)
+
+
+def import_resnet18_encoder(path: str, encoder: torch.nn.Module) -> Dict[str, Any]:
+    """Load a ResNet-18 encoder ``.pt`` (``{'state_dict': …}``, the reference's
+    2D schema) or a bare torchvision state_dict into ``encoder``, its ``fc``
+    dropped (reference ``README.md:42-43``); every tensor of
+    ``resnet18_encoder_mapping`` must be there, a BN counter it lacks stays
+    as it was.  Returns the file's dict."""
+    ckpt = load_reference_checkpoint(path)
+    given = dict(ckpt["state_dict"]) if "state_dict" in ckpt else dict(ckpt)
+    state = encoder.state_dict()
+    missing = [k for k in state if k not in given and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"{path}: not a ResNet-18 encoder state_dict (no {missing[:4]}…)")
+    encoder.load_state_dict({k: given.get(k, v) for k, v in state.items()}, strict=True)
     return ckpt
 
 

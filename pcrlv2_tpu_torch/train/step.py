@@ -1,14 +1,17 @@
-"""The 3D train step (port of ``pcrlv2_tpu/train/step.py``; reference
-``train_3d.py:95-151``).
+"""The train step of both pipelines (port of ``pcrlv2_tpu/train/step.py``;
+reference ``train_3d.py:95-151``, ``train_2d.py:120-172``).
 
 One step: the model on x1, then x2, then the 6 local views concatenated
 view-major (rows ``[i·B:(i+1)·B]`` hold view i), with the BatchNorm running
 statistics chained through the three calls; the 4-term loss; backward; SGD.
+The model says which pipeline: ``model.dim`` (3: ``PCRLv23d``, which returns
+``(out, feats, masks)``; 2: ``PCRLv2``, ``(feats, out, masks)``) and
+``model.n_levels`` (its decoder stages: 3 or 5).
 
 The SimSiam levels are an input: ``levels``, a 1-D int64 tensor on the
-device, holds ``1 + 2·V`` indices in [0, 3) — the global term's level (which
-also selects the deep-supervision mask), then for each local view i the
-levels of its (x1, view i) and (x2, view i) terms.  Every level's loss is
+device, holds ``1 + 2·V`` indices in [0, ``n_levels``) — the global term's
+level (which also selects the deep-supervision mask), then for each local
+view i the levels of its (x1, view i) and (x2, view i) terms.  Every level's loss is
 computed and the drawn one selected by index (``losses.select``), so a step
 launches the same kernels whatever the draw: every decoder stage runs its
 backward (the unselected ones on a gradient of exactly zero), and so do the
@@ -56,8 +59,9 @@ from pcrlv2_tpu_torch.ops.resize import upsample_linear
 from pcrlv2_tpu_torch.train.losses import beta_schedule, cos_loss, mse_loss, select
 from pcrlv2_tpu_torch.train.optimizer import SGD
 
-#: SimSiam levels the step samples from (the three decoder stages)
-N_LEVELS = 3
+#: the loss guard of each pipeline (``pcrlv2_tpu/train/trainer.py:82``): the
+#: reference's 2D loop skips no step (``train_2d.py:120-172``)
+LOSS_GUARD = {3: 1000.0, 2: None}
 
 
 class TrainState:
@@ -80,6 +84,15 @@ def flatten_locals(locals_bv: torch.Tensor):
     return locals_bv.transpose(0, 1).reshape((v * b,) + locals_bv.shape[2:]), b, v
 
 
+def forward(model: torch.nn.Module, x: torch.Tensor, local: bool = False):
+    """``model(x, local)`` as ``(out, feats, masks)`` whichever the pipeline."""
+    outs = model(x, local=local)
+    if model.dim == 2:
+        feats, out, masks = outs
+        return out, feats, masks
+    return outs
+
+
 def loss_fn(model: torch.nn.Module, views: Dict[str, torch.Tensor],
             levels, epoch, beta_period: float = 240.0,
             mix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -92,10 +105,10 @@ def loss_fn(model: torch.nn.Module, views: Dict[str, torch.Tensor],
     if mix is not None:
         lam, perm = mix
         x1, x2, gt = (lam * t + (1.0 - lam) * t.index_select(0, perm) for t in (x1, x2, gt))
-    out1, feats1, masks1 = model(x1)
-    _, feats2, _ = model(x2)
+    out1, feats1, masks1 = forward(model, x1)
+    _, feats2, _ = forward(model, x2)
     local_flat, b, n_views = flatten_locals(views["locals"])
-    _, feats_l, _ = model(local_flat, local=True)
+    _, feats_l, _ = forward(model, local_flat, local=True)
     if len(levels) != 1 + 2 * n_views:
         raise ValueError(f"need {1 + 2 * n_views} levels, got {len(levels)}")
 
@@ -157,9 +170,10 @@ def train_step(state: TrainState, views: Dict[str, torch.Tensor],
     return metrics
 
 
-def draw_levels(gen: torch.Generator, n_views: int) -> torch.Tensor:
-    """The 1 + 2·V SimSiam levels of one step, drawn on ``gen``'s device."""
-    return torch.randint(0, N_LEVELS, (1 + 2 * n_views,), generator=gen,
+def draw_levels(gen: torch.Generator, n_views: int, n_levels: int = 3) -> torch.Tensor:
+    """The 1 + 2·V SimSiam levels of one step in [0, ``n_levels``), drawn on
+    ``gen``'s device."""
+    return torch.randint(0, n_levels, (1 + 2 * n_views,), generator=gen,
                          device=gen.device)
 
 
@@ -199,7 +213,7 @@ def pipelined_train_step(state: TrainState, views: Dict[str, torch.Tensor],
     then None.  The two generators keep the draws of each in order."""
     mix = (None if mixup_alpha is None
            else draw_mixup(level_gen, mixup_alpha, views["x1"].shape[0]))
-    levels = draw_levels(level_gen, views["locals"].shape[1])
+    levels = draw_levels(level_gen, views["locals"].shape[1], state.model.n_levels)
     metrics = train_step(state, views, levels, lr, epoch, mix=mix, **step_kwargs)
     next_views = None if raw_next is None else aug_fn(aug_gen, raw_next)
     return metrics, next_views

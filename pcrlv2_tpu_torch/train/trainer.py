@@ -1,10 +1,11 @@
-"""Epoch loop of 3D pretraining (port of ``pcrlv2_tpu/train/trainer.py``;
-reference ``train_3d.py:42-83``): cosine LR per epoch, every loader behind
+"""Epoch loop of pretraining, 3D and 2D (port of ``pcrlv2_tpu/train/trainer.py``;
+reference ``train_3d.py:42-83``, ``train_2d.py:61-107``): cosine LR per epoch, every loader behind
 ``device_prefetch``, one pipelined step per batch (the step and the next
 batch's augmentation, ``pipelined_train_step``), meters every ``log_every``
 steps, a held-out evaluation every ``eval_every`` epochs, reference-schema
 ``.pt`` checkpoints at ``epoch % 100 == 0`` or ``epoch == 240`` named
-``{model}_{n}_{phase}_{ratio}_{epoch}.pt``, and the train state at those
+``{model}_{n}_{phase}_{ratio}_{epoch}.pt`` (the 2D model's encoder only, as
+the reference saves it), and the train state at those
 epochs and every ``save_every`` epochs (``<output>/train_state``), from
 which ``resume`` continues; ``profile_dir`` wraps the epochs in a
 ``torch.profiler`` trace.
@@ -18,7 +19,10 @@ On the CPU the same function runs eagerly.
 Randomness comes from two generators on the device, seeded from ``seed``:
 one for the augmentation, one for the SimSiam levels; both are part of the
 train state.  Evaluation draws its levels from a generator seeded by
-(seed, batch index), so it is the same on every pass.
+(seed, batch index), so it is the same on every pass.  The 2D pipeline
+evaluates on the augmentation's views (the reference's chest eval loader
+aliases the train pipeline, ``data.py:58-59``), drawn on a generator seeded
+by (seed, batch index) too (``eval_aug_seed``).
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ import torch
 from pcrlv2_tpu_torch.core.device import resolve_device
 from pcrlv2_tpu_torch.data.pipeline import CUDA_CALLS, device_prefetch
 from pcrlv2_tpu_torch.ops import _build
-from pcrlv2_tpu_torch.train.checkpoint import (export_pcrlv23d, load_train_state,
+from pcrlv2_tpu_torch.train.checkpoint import (export_pcrlv23d, export_resnet18_encoder,
+                                               import_resnet18_encoder, load_train_state,
                                                save_train_state)
 from pcrlv2_tpu_torch.train.optimizer import cosine_lr
-from pcrlv2_tpu_torch.train.step import N_LEVELS, TrainState, eval_step, pipelined_train_step
+from pcrlv2_tpu_torch.train.step import (LOSS_GUARD, TrainState, eval_step,
+                                         pipelined_train_step)
 from pcrlv2_tpu_torch.utils import chiplock
 from pcrlv2_tpu_torch.utils.meters import AverageMeter, MetricLogger
 
@@ -73,6 +79,7 @@ class TrainConfig:
     resume: Optional[str] = None  # train-state directory to continue from
     profile_dir: Optional[str] = None  # a torch.profiler trace of the run goes here
     mixup: Optional[float] = None  # input-mixup α (the JAX step's mixup_alpha)
+    encoder_weights: Optional[str] = None  # a ResNet-18 .pt the 2D encoder starts from
 
     def __post_init__(self):
         self.log_every = max(1, int(self.log_every))
@@ -96,12 +103,19 @@ def raw_batch_to_views(batch) -> dict:
             "locals": crops[..., None]}
 
 
-def eval_levels(seed: int, index: int, n_views: int) -> list:
-    """The 1 + 2·V levels of eval batch ``index``, from a generator seeded by
-    (seed, index)."""
+def eval_levels(seed: int, index: int, n_views: int, n_levels: int = 3) -> list:
+    """The 1 + 2·V levels in [0, ``n_levels``) of eval batch ``index``, from a
+    generator seeded by (seed, index)."""
     key = int(np.random.SeedSequence([seed % 2 ** 32, index]).generate_state(1)[0])
     gen = torch.Generator().manual_seed(key)
-    return torch.randint(0, N_LEVELS, (1 + 2 * n_views,), generator=gen).tolist()
+    return torch.randint(0, n_levels, (1 + 2 * n_views,), generator=gen).tolist()
+
+
+def eval_aug_seed(seed: int, index: int) -> int:
+    """The seed of the augmentation that makes 2D eval batch ``index``'s
+    views: a stream of (seed, index) apart from the eval levels'."""
+    return int(np.random.SeedSequence([seed % 2 ** 32, index], spawn_key=(2,))
+               .generate_state(1)[0])
 
 
 def level_seed(seed: int) -> int:
@@ -207,18 +221,22 @@ class CapturedStep:
 
 def _step_fn(state: TrainState, aug_gen, level_gen, lr, epoch, aug_fn,
              mixup_alpha: Optional[float] = None):
-    """``pipelined_train_step`` on these as ``fn(views, raw_next)``.  It holds
-    no reference to the trainer, so a trainer no longer used is freed, its
-    graphs with it, as soon as its last reference goes."""
+    """``pipelined_train_step`` on these as ``fn(views, raw_next)``, with the
+    model's pipeline's loss guard (``LOSS_GUARD``).  It holds no reference
+    to the trainer, so a trainer no longer used is freed, its graphs with
+    it, as soon as its last reference goes."""
+    guard = LOSS_GUARD[state.model.dim]
+
     def step(views: dict, raw_next: Optional[dict]):
         return pipelined_train_step(state, views, raw_next, aug_gen, level_gen, lr, epoch,
-                                    aug_fn=aug_fn, mixup_alpha=mixup_alpha)
+                                    aug_fn=aug_fn, mixup_alpha=mixup_alpha, loss_guard=guard)
     return step
 
 
 class Trainer:
     """Drives the pipelined step over epochs on ``device`` (default: CUDA),
-    there as CUDA graphs unless ``cuda_graph=False``."""
+    there as CUDA graphs unless ``cuda_graph=False``; the model (``PCRLv23d``
+    or ``PCRLv2``) picks the pipeline."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig, aug_fn,
                  device=None, cuda_graph: bool = True):
@@ -304,21 +322,40 @@ class Trainer:
         ``cfg.eval_batches``; 0 = all).  Leaves the train state untouched."""
         if max_batches is None:
             max_batches = self.cfg.eval_batches
+        model = self.state.model
         meters = {k: AverageMeter() for k in _LOSSES}
         for i, raw in enumerate(batch_iter):
             if max_batches and i >= max_batches:
                 break
-            views = raw_batch_to_views(self.to_device(raw))
-            levels = eval_levels(self.cfg.seed, i, views["locals"].shape[1])
-            metrics = eval_step(self.state.model, views, levels)
+            if model.dim == 2:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    eval_aug_seed(self.cfg.seed, i))
+                views = self.aug_fn(gen, self.to_device(raw))
+            else:
+                views = raw_batch_to_views(self.to_device(raw))
+            levels = eval_levels(self.cfg.seed, i, views["locals"].shape[1], model.n_levels)
+            metrics = eval_step(model, views, levels)
             for k in meters:
                 meters[k].update(float(metrics[k]), views["x1"].shape[0])
         return {k: m.avg for k, m in meters.items()}
 
     def save_reference_ckpt(self, epoch: int) -> str:
+        """The reference's ``.pt``: the whole ``PCRLv23d``, or the 2D model's
+        encoder (``train_2d.py:99``)."""
         path = os.path.join(self.cfg.output, self.cfg.ckpt_name(epoch))
-        export_pcrlv23d(self.state.model, path, opt=vars(self.cfg), epoch=epoch)
+        model = self.state.model
+        if model.dim == 2:
+            export_resnet18_encoder(model.encoder, path, opt=vars(self.cfg), epoch=epoch)
+        else:
+            export_pcrlv23d(model, path, opt=vars(self.cfg), epoch=epoch)
         return path
+
+    def load_encoder_weights(self, path: str) -> None:
+        """The 2D encoder from a ResNet-18 ``.pt`` or torchvision state_dict
+        (the ImageNet-init analog of the reference's smp default)."""
+        if self.state.model.dim != 2:
+            raise ValueError("--encoder_weights applies to the 2D pipeline")
+        import_resnet18_encoder(path, self.state.model.encoder)
 
     def save_state(self, epoch: int) -> str:
         return save_train_state(self.cfg.state_dir, epoch, self.state,
@@ -344,19 +381,36 @@ def profiled(profile_dir: Optional[str], device: torch.device):
                    on_trace_ready=tensorboard_trace_handler(profile_dir))
 
 
+#: what a 2D pretask run without ``--encoder_weights`` prints
+#: (``pcrlv2_tpu/train/trainer.py:402-418``)
+SCRATCH_WARNING = (
+    "WARNING: 2D encoder initialized FROM SCRATCH — the reference starts from "
+    "ImageNet weights. For reference-equivalent init:\n"
+    "  python -c \"import torch,torchvision; torch.save(torchvision.models.resnet18("
+    "weights='IMAGENET1K_V1').state_dict(), 'resnet18.pt')\"   # on any online machine\n"
+    "  then pass --encoder_weights resnet18.pt")
+
+
 def run_training(model: torch.nn.Module, cfg: TrainConfig, loader, aug_fn,
                  device=None, eval_loader=None, cuda_graph: bool = True) -> Trainer:
     """Epochs 0..cfg.epochs, or from the epoch after the one saved in
     ``cfg.resume`` (reference epoch loop ``train_3d.py:60-83``; eval, save
     and profile cadence of the JAX trainer, ``trainer.py:419-457``), on a
     ``Trainer(..., cuda_graph=cuda_graph)``; the state is restored before any
-    step, so before any capture.  On a CUDA device the run holds the GPU
-    lock (``utils/chiplock.py``; it warns if another process holds it) and
-    releases it however the run ends."""
+    step, so before any capture.  ``cfg.encoder_weights``: the 2D encoder's
+    initial weights (``Trainer.load_encoder_weights``); a 2D pretask run
+    without them, and not resumed, says it starts from scratch.  On a CUDA
+    device the run holds the GPU lock (``utils/chiplock.py``; it warns if
+    another process holds it) and releases it however the run ends."""
     trainer = Trainer(model, cfg, aug_fn, device, cuda_graph)
-    lock = (chiplock.guard_warn(f"trainer n={cfg.n} output={cfg.output}")
+    lock = (chiplock.guard_warn(f"trainer d={model.dim} n={cfg.n} output={cfg.output}")
             if trainer.device.type == "cuda" else None)
     try:
+        if cfg.encoder_weights:
+            trainer.load_encoder_weights(cfg.encoder_weights)
+            print(f"==> encoder initialized from {cfg.encoder_weights}")
+        elif model.dim == 2 and cfg.phase == "pretask" and not cfg.resume:
+            print(SCRATCH_WARNING)
         start = 0
         if cfg.resume:
             start = trainer.restore_state(cfg.resume) + 1

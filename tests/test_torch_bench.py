@@ -96,7 +96,7 @@ def test_bench_run_prints_one_json_line(capsys):
 
 
 @pytest.mark.parametrize("env,missing", [
-    ({"BENCH_DIM": "2"}, "unet2d"),
+    ({"BENCH_DIM": "4"}, "expected 3 or 2"),
     ({"BENCH_REMAT": "1"}, "activation checkpointing"),
     ({"BENCH_PRNG": "rbg"}, "no counterpart"),
 ])

@@ -68,12 +68,13 @@ def test_forward_and_gradients_match_jax(variant, shape):
     x, wt, bias = _rand(1, b, d, h, w, ci), _rand(2, 3, 3, 3, ci, co, scale=0.2), _rand(3, co)
     g = _rand(4, b, d, h, w, co)
 
-    def loss(x_, w_, b_):
-        return jnp.sum(jax_fn(x_, w_, b_) * g)
+    def forward_and_grads(x_, w_, b_):
+        out, vjp = jax.vjp(jax_fn, x_, w_, b_)
+        # the gradient of Σ(conv·g): the VJP at cotangent g
+        return (out,) + vjp(jnp.asarray(g))
 
-    with pltpu.force_tpu_interpret_mode():
-        want = jax_fn(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias))
-        gx, gw, gb = jax.grad(loss, argnums=(0, 1, 2))(
+    with pltpu.force_tpu_interpret_mode():  # one jitted program, not one per op
+        want, gx, gw, gb = jax.jit(forward_and_grads)(
             jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias))
     xt = torch.from_numpy(x).requires_grad_()
     wtt = _to_torch_w(wt).requires_grad_()

@@ -63,8 +63,8 @@ CONV_SHAPES = [(2, 8, 8, 8, 4, 8), (1, 16, 16, 8, 1, 16), (2, 4, 4, 4, 32, 16),
 def test_conv3d_forward_matches_pallas(shape):
     b, d, h, w, ci, co = shape
     x, wt, bias = _rand(0, b, d, h, w, ci), _rand(1, 3, 3, 3, ci, co, scale=0.1), _rand(2, co)
-    with pltpu.force_tpu_interpret_mode():
-        want = conv3d_pallas(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias))
+    with pltpu.force_tpu_interpret_mode():  # jitted: one compile, not one per op
+        want = jax.jit(conv3d_pallas)(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias))
     wm = ck.repack_weight(_to_torch_w(wt), torch.float32)
     got = ck.conv3d_fwd(torch.from_numpy(x), wm, torch.from_numpy(bias))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -80,8 +80,8 @@ def test_conv3d_gradients_match_pallas(shape):
     def loss(x_, w_, b_):
         return jnp.sum(conv3d_pallas(x_, w_, b_) ** 2)
 
-    with pltpu.force_tpu_interpret_mode():
-        gx, gw, gb = jax.grad(loss, argnums=(0, 1, 2))(
+    with pltpu.force_tpu_interpret_mode():  # jitted: one compile, not one per op
+        gx, gw, gb = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
             jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias))
     xt = torch.from_numpy(x).requires_grad_()
     wtt = _to_torch_w(wt).requires_grad_()

@@ -106,14 +106,45 @@ def test_state_dict_is_the_reference_schema(jax_setup):
         "gn", "prelu")
 
 
-@pytest.mark.parametrize("local", [False, True])
-def test_forward_matches_jax(jax_setup, local):
+@pytest.fixture(scope="module")
+def jax_forwards(jax_setup):
+    """Every JAX forward the tests below compare with, as one jitted program
+    (an eager ``apply`` compiles each op anew for each shape and dtype, ~6×
+    the time): train mode at f32 on global (seed 3) and on local (seed 3)
+    inputs, eval mode on statistics moved by 0.25 (seed 4), and train mode
+    at f32 and under the bf16 policy on one input (seed 5)."""
     jmodel, _, state = jax_setup
-    shape = (4, 8, 8, 8, 1) if local else (2, 16, 16, 8, 1)
-    x = np.random.RandomState(3).rand(*shape).astype(np.float32)
-    (jout, jfeats, jmasks), upd = jmodel.apply(
-        {"params": state.params, "batch_stats": state.batch_stats},
-        jnp.asarray(x), local=local, train=True, mutable=["batch_stats"])
+    xs = {"global": np.random.RandomState(3).rand(2, 16, 16, 8, 1).astype(np.float32),
+          "local": np.random.RandomState(3).rand(4, 8, 8, 8, 1).astype(np.float32),
+          "eval": np.random.RandomState(4).rand(2, 16, 16, 8, 1).astype(np.float32),
+          "bf16": np.random.RandomState(5).rand(2, 16, 16, 8, 1).astype(np.float32)}
+    eval_stats = jax.tree.map(lambda v: v + 0.25, state.batch_stats)
+    bf16_model = JaxPCRLv23d(policy=JAX_DEFAULT_POLICY)
+
+    @jax.jit
+    def run(params, stats, eval_stats, xs):
+        variables = {"params": params, "batch_stats": stats}
+
+        def train(model, x, local=False):
+            return model.apply(variables, x, local=local, train=True,
+                               mutable=["batch_stats"])
+        return {"global": train(jmodel, xs["global"]),
+                "local": train(jmodel, xs["local"], local=True),
+                "eval": jmodel.apply({"params": params, "batch_stats": eval_stats},
+                                     xs["eval"], train=False),
+                "bf16_f32": train(jmodel, xs["bf16"]),
+                "bf16": train(bf16_model, xs["bf16"])}
+
+    out = run(state.params, state.batch_stats, eval_stats,
+              jax.tree.map(jnp.asarray, xs))
+    return {"x": xs, "eval_stats": eval_stats, "out": jax.device_get(out)}
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_forward_matches_jax(jax_setup, jax_forwards, local):
+    _, _, state = jax_setup
+    x = jax_forwards["x"]["local" if local else "global"]
+    (jout, jfeats, jmasks), upd = jax_forwards["out"]["local" if local else "global"]
     model = _port_model(state)
     model.train()
     with torch.no_grad():
@@ -131,15 +162,13 @@ def test_forward_matches_jax(jax_setup, local):
                         **FWD_TOL)
 
 
-def test_eval_forward_matches_jax(jax_setup):
-    jmodel, _, state = jax_setup
-    x = np.random.RandomState(4).rand(2, 16, 16, 8, 1).astype(np.float32)
-    stats = jax.tree.map(lambda v: v + 0.25, state.batch_stats)
-    jout, jfeats, _ = jmodel.apply({"params": state.params, "batch_stats": stats},
-                                   jnp.asarray(x), train=False)
+def test_eval_forward_matches_jax(jax_setup, jax_forwards):
+    _, _, state = jax_setup
+    x = jax_forwards["x"]["eval"]
+    jout, jfeats, _ = jax_forwards["out"]["eval"]
     model = PCRLv23d(policy=PARITY_POLICY, device="cpu")
     model.load_state_dict(ckpt.from_jax_variables(
-        _variables(state.params, stats)), strict=True)
+        _variables(state.params, jax_forwards["eval_stats"])), strict=True)
     model.eval()
     with torch.no_grad():
         out, feats, _ = model(torch.from_numpy(x))
@@ -148,7 +177,7 @@ def test_eval_forward_matches_jax(jax_setup):
         np.testing.assert_allclose(pre.numpy(), np.asarray(jpre), **FEAT_TOL)
 
 
-def test_bf16_policy_forward_matches_jax(jax_setup):
+def test_bf16_policy_forward_matches_jax(jax_setup, jax_forwards):
     """The port's bf16 policy (``--amp``): its train-mode forward (output and
     the 3 masks) is no farther from the JAX f32 forward than 1.5× the JAX
     bf16 policy's own distance, plus 2⁻⁸ (one bf16 rounding) of the largest
@@ -156,15 +185,13 @@ def test_bf16_policy_forward_matches_jax(jax_setup):
     other's reference; the f32 forward is.  The projections are left out:
     BatchNorm1d over 2 samples makes them chaotic (``FEAT_TOL``)."""
     _, _, state = jax_setup
-    x = np.random.RandomState(5).rand(2, 16, 16, 8, 1).astype(np.float32)
-    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    x = jax_forwards["x"]["bf16"]
 
-    def jax_forward(policy):
-        (out, _, masks), _ = JaxPCRLv23d(policy=policy).apply(
-            variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    def jax_forward(name):
+        (out, _, masks), _ = jax_forwards["out"][name]
         return [np.asarray(v, dtype=np.float32) for v in (out, *masks)]
 
-    want, jax_bf16 = jax_forward(JAX_PARITY_POLICY), jax_forward(JAX_DEFAULT_POLICY)
+    want, jax_bf16 = jax_forward("bf16_f32"), jax_forward("bf16")
     model = PCRLv23d(policy=DEFAULT_POLICY, device="cpu")
     model.load_state_dict(ckpt.from_jax_variables(
         _variables(state.params, state.batch_stats)), strict=True)
@@ -196,7 +223,25 @@ def jax_levels(key, n_views):
 _FEED_BN = ("conv1.bias", "predictor_head.0.bias", ".bn.bias")
 
 
-def test_gradient_matches_jax_float64(jax_setup):
+def _to64(tree):
+    return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
+
+
+@pytest.fixture(scope="module")
+def f64_loss_and_grad():
+    """``make_loss_fn(PCRLv23d in float64, dim=3)``'s value and gradient
+    with the key an argument, jitted once (x64 enabled) for the two
+    float64 tests below: its lowering and compile take about as long as
+    its run, so one program serves both."""
+    f64 = JaxPolicy(param_dtype=jnp.float64, compute_dtype=jnp.float64,
+                    output_dtype=jnp.float64)
+    with jax.enable_x64(True):
+        jloss = make_loss_fn(JaxPCRLv23d(policy=f64), dim=3)
+        return jax.jit(jax.value_and_grad(
+            lambda p, s, v, key: jloss(p, s, v, key, 0), has_aux=True))
+
+
+def test_gradient_matches_jax_float64(jax_setup, f64_loss_and_grad):
     """The port's f32 gradient of the 4-term loss against the JAX model run
     in float64 (an f64 ``Policy``, x64 enabled) on the same weights, views
     and levels, batch 4: per tensor, the largest error is at most 2e-3 of the
@@ -207,16 +252,11 @@ def test_gradient_matches_jax_float64(jax_setup):
     _, _, state = jax_setup
     views = _tiny_views(seed=7, b=4)
     key = jax.random.key(21)
-    f64 = JaxPolicy(param_dtype=jnp.float64, compute_dtype=jnp.float64,
-                    output_dtype=jnp.float64)
     with jax.enable_x64(True):
         # x64 changes jax.random's integer draws: the levels come from here
         levels = jax_levels(key, n_views=2)
-        jloss = make_loss_fn(JaxPCRLv23d(policy=f64), dim=3)
-        to64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
-        (jvalue, _), grads = jax.jit(jax.value_and_grad(
-            lambda p, s, v: jloss(p, s, v, key, 0), has_aux=True))(
-            to64(state.params), to64(state.batch_stats), to64(views))
+        (jvalue, _), grads = f64_loss_and_grad(
+            _to64(state.params), _to64(state.batch_stats), _to64(views), key)
         # rounded to f32 on the way: 6e-8 relative, far below the tolerance
         want = ckpt.from_jax_variables(_variables(grads, state.batch_stats))
     model = _port_model(state)
@@ -238,16 +278,16 @@ def test_gradient_matches_jax_float64(jax_setup):
 
 def jax_mixup_draws(key, b, n_views, alpha):
     """λ, the permutation and the levels ``make_loss_fn(mixup_alpha=...)``
-    draws from ``key``: mixup's two splits come first and shift the key the
-    levels are drawn from."""
+    draws from ``key``, and the key left after mixup's two splits, from
+    which the rest of the loss draws its levels."""
     key, kmix = jax.random.split(key)
     lam = jax.random.beta(kmix, alpha, alpha)
     key, kperm = jax.random.split(key)
     perm = np.array(jax.random.permutation(kperm, b))
-    return float(jnp.maximum(lam, 1.0 - lam)), perm, jax_levels(key, n_views)
+    return jnp.maximum(lam, 1.0 - lam), perm, jax_levels(key, n_views), key
 
 
-def test_mixup_loss_and_gradient_match_jax_float64(jax_setup):
+def test_mixup_loss_and_gradient_match_jax_float64(jax_setup, f64_loss_and_grad):
     """``make_loss_fn(mixup_alpha=0.2)`` in float64 (as above, its λ,
     permutation and levels drawn under x64) against the port's f32 loss on
     the same draws, weights and views, batch 4: the 4-term loss within 1e-4
@@ -255,20 +295,25 @@ def test_mixup_loss_and_gradient_match_jax_float64(jax_setup):
     close f32 comes depends on the draw, through BatchNorm over 4 samples
     that mixing makes more alike: at key 12 (λ = 0.658) the port's worst
     tensor is off by 5.1e-3 and JAX's own f32 gradient by 2.6e-2, so this
-    test runs at key 7, chosen after key 12 was seen to exceed 2e-3."""
+    test runs at key 7, chosen after key 12 was seen to exceed 2e-3.
+
+    ``make_loss_fn(mixup_alpha=α)`` at a key is ``make_loss_fn()`` on x1, x2
+    and gt mixed as ``λ·t + (1 − λ)·t[perm]`` (``pcrlv2_tpu/train/step.py``'s
+    ``mix``, at the draws it takes from that key), at the key left after
+    mixup's two splits: so the reference is the gradient test's float64
+    program on the views mixed with JAX's own λ and permutation."""
     _, _, state = jax_setup
     views = _tiny_views(seed=7, b=4)
     key = jax.random.key(7)  # λ = 0.777 under x64
-    f64 = JaxPolicy(param_dtype=jnp.float64, compute_dtype=jnp.float64,
-                    output_dtype=jnp.float64)
     with jax.enable_x64(True):
-        lam, perm, levels = jax_mixup_draws(key, 4, n_views=2, alpha=0.2)
-        jloss = make_loss_fn(JaxPCRLv23d(policy=f64), dim=3, mixup_alpha=0.2)
-        to64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
-        (jvalue, (_, jmetrics)), grads = jax.jit(jax.value_and_grad(
-            lambda p, s, v: jloss(p, s, v, key, 0), has_aux=True))(
-            to64(state.params), to64(state.batch_stats), to64(views))
+        lam, perm, levels, rest = jax_mixup_draws(key, 4, n_views=2, alpha=0.2)
+        mixed = dict(_to64(views))
+        for k in ("x1", "x2", "gt"):
+            mixed[k] = lam * mixed[k] + (1.0 - lam) * mixed[k][perm]
+        (jvalue, (_, jmetrics)), grads = f64_loss_and_grad(
+            _to64(state.params), _to64(state.batch_stats), mixed, rest)
         want = ckpt.from_jax_variables(_variables(grads, state.batch_stats))
+        lam = float(lam)
     assert int(jmetrics["level"]) == levels[0]
     assert 0.5 <= lam < 0.99 and not np.array_equal(perm, np.arange(4))
     model = _port_model(state)

@@ -37,7 +37,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_package_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(pcrlv2_tpu_torch.__path__,
                                                   "pcrlv2_tpu_torch.")]
-    for name in ("ops.conv3d_kernel", "native", "utils.chiplock", "tools.bench"):
+    for name in ("ops.conv3d_kernel", "native", "utils.chiplock", "tools.bench",
+                 "models.resnet", "models.unet2d", "data.augment2d"):
         assert f"pcrlv2_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -63,7 +64,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--synthetic", "--d", "2"], "pcrlv2_tpu/models/unet2d.py"),
+    (["--synthetic", "--d", "2", "--phase", "finetune"], "pcrlv2_tpu/train/finetune.py"),
     (["--synthetic", "--phase", "finetune"], "pcrlv2_tpu/train/finetune.py"),
     ([], "--data is required"),
     (["--synthetic", "--spatial", "2"], "pcrlv2_tpu/parallel/spatial_train.py"),
