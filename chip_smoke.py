@@ -133,7 +133,31 @@ Phases, any failure exits non-zero without the final line:
    runs the same two runs); then the bench at ``BENCH_DIM=2``
    (``BENCH2D_RUNS``: 64 and 32 images under ``--amp``'s policy, 32 in f32,
    trials reduced as phase 11's): images/s, the trials' spread and peak
-   memory.
+   memory;
+13. finetuning (``--phase finetune``, ``train/finetune.py``) under
+   ``pallas``: first #1 (forward and dx), #2 and #3 at the 3D finetune
+   path's own launch shapes (``FT_CALLS``: b = 8 at every level), f32 and
+   bf16, against their plain versions at ``TOL`` (not timed); the CLI (``--synthetic --b 8 --epochs 0 --steps_per_epoch
+   10 --eval_every 1 --eval_batches 2``) at ``--d 3`` (``PCRLv23d`` at
+   ``local=True`` on pseudo-masks; the README's recipe finetunes at b = 8)
+   and at ``--d 2`` (``ChestClassifier``, 16 images of 224²), each in f32
+   and with ``--amp``, on the graphs: launches exact (``expected_launches``'
+   finetune form: #1 14 forwards + 13 dx, #2 14, #3 3 a step, #4 none; 2D
+   none of #1-#10), every loss and metric finite (2D: ``eval_auc``), the
+   3D ``.pt`` loading strictly into ``PCRLv23d``, the 2D one torchvision's
+   ResNet-18 schema with ``fc`` 14 × 512 moved by training; each
+   iteration's time over the same path, peak memory (the CLI run's trainer
+   freed first) and, under the
+   profiler, device time a step by kernel group, busy share and device
+   kernels a step; then 3D finetuning from a pretask ``.pt`` written here
+   (``--weight``) on a structured phantom tree with its masks
+   (``--mask_dir``, ``--ratio 0.5``, ``--epochs 1 --eval_every 1
+   --eval_batches 2 --save_every 1``): masks read from the tree, launches
+   exact, eval dice finite, every ``.pt`` strict; the finetune step's
+   graph replays against the eager loop, two epochs from one state and
+   seed, bit for bit, in 3D and 2D (the dropout masks and generator state
+   among the leaves), in f32 and ``--amp``; one 3D and one 2D finetune step
+   under ``torch.cuda.set_sync_debug_mode("error")``.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -144,6 +168,7 @@ bounds), the CLI runs and the profiles go to
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -247,21 +272,27 @@ PROBE_REPS = 20  # calls a probe's device time is averaged over (phase 9)
 # the drawn one is selected, so every decoder stage of every call gets a
 # gradient whatever the draw; 9 head forwards and 3 head backwards (x1's
 # three masks).  An eval batch runs the 42 forwards and 9 head forwards
-# only.  Which kernel runs the forward and the dx follows PCRL_CONV3D:
+# only.  A finetune step (phase 13) runs the model once, at local=True, and
+# only its output carries a loss: 14 forwards, 14 dw, 13 dx and 3 head
+# forwards, no head backward; a finetune eval batch 14 forwards and 3 head
+# forwards.  Which kernel runs the forward and the dx follows PCRL_CONV3D:
 FWD_DX = {"pallas": ("conv3d_fwd", "conv3d_fwd"),
           "packed": ("conv3d_packed", "conv3d_packed"),
           "im2col": ("conv3d_im2col", "conv3d_fwd")}
 
 
-def expected_launches(selector: str, steps: int, eval_batches: int) -> dict:
+def expected_launches(selector: str, steps: int, eval_batches: int,
+                      finetune: bool = False) -> dict:
     """The counts a run of ``steps`` train steps and ``eval_batches`` eval
-    batches must show (a graph replay adds its capture's counts)."""
+    batches must show (a graph replay adds its capture's counts), pretask
+    or (``finetune``) finetune."""
+    calls = 1 if finetune else 3  # model calls a step: the volume, or x1, x2, locals
     expect = {k: 0 for k in KERNELS}
-    expect.update(conv3d_dw=42 * steps, head_fwd=9 * (steps + eval_batches),
-                  head_bwd=3 * steps)
+    expect.update(conv3d_dw=14 * calls * steps, head_fwd=3 * calls * (steps + eval_batches),
+                  head_bwd=0 if finetune else 3 * steps)
     fwd, dx = FWD_DX[selector]
-    expect[fwd] += 42 * (steps + eval_batches)
-    expect[dx] += 39 * steps
+    expect[fwd] += 14 * calls * (steps + eval_batches)
+    expect[dx] += 13 * calls * steps
     return expect
 
 
@@ -274,8 +305,8 @@ LAUNCHED_IN = {"conv3d_fwd": "f32", "conv3d_dw": "f32", "head_fwd": "f32",
                "head_bwd": "f32", "conv3d_im2col": "im2col", "conv3d_packed": "packed"}
 
 
-def level_shape(call: str, level: int):
-    b, size = CALLS[call]
+def level_shape(call: str, level: int, calls=CALLS):
+    b, size = calls[call]
     return (b,) + tuple(s >> level for s in size)
 
 
@@ -293,10 +324,10 @@ def time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def conv_cases(dtype):
+def conv_cases(dtype, calls=CALLS):
     """(kernel, label, kernel_fn, plain_fn, library_fn, flops, bytes, kinds)
-    for every conv launch shape of one training step; ``kinds`` names each
-    output's tolerance class."""
+    for every conv launch shape of one training step (of ``calls``' model
+    calls); ``kinds`` names each output's tolerance class."""
     import torch
     import torch.nn.functional as F
 
@@ -306,9 +337,9 @@ def conv_cases(dtype):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     es = torch.tensor([], dtype=dtype).element_size()
-    for call in CALLS:
+    for call in calls:
         for name, ci, co, level in CONVS:
-            shp = level_shape(call, level)
+            shp = level_shape(call, level, calls)
             m = math.prod(shp)
             x = (torch.randn(shp + (ci,), generator=gen, device=dev) * 0.5).to(dtype)
             g = (torch.randn(shp + (co,), generator=gen, device=dev) * 0.5).to(dtype)
@@ -352,7 +383,7 @@ def conv_cases(dtype):
                    flops, es * m * (ci + co) + 4 * 27 * ci * co, ("dw",))
 
 
-def head_cases(dtype):
+def head_cases(dtype, calls=CALLS):
     import torch
     import torch.nn.functional as F
 
@@ -361,9 +392,9 @@ def head_cases(dtype):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     es = torch.tensor([], dtype=dtype).element_size()
-    for call in CALLS:
+    for call in calls:
         for name, ci, level in HEADS:
-            shp = level_shape(call, level)
+            shp = level_shape(call, level, calls)
             m = math.prod(shp)
             x = (torch.randn(shp + (ci,), generator=gen, device=dev) * 0.5).to(dtype)
             g = (torch.randn(shp, generator=gen, device=dev) * 0.5).to(dtype)
@@ -684,12 +715,13 @@ def env_var(name: str, value: str):
             os.environ[name] = old
 
 
-def launched(selector: str, steps: int, eval_batches: int, what: str) -> dict:
+def launched(selector: str, steps: int, eval_batches: int, what: str,
+             finetune: bool = False) -> dict:
     """The launch counters against ``expected_launches``."""
     from pcrlv2_tpu_torch.ops import _build
 
     counts = {k: _build.launches[k] for k in KERNELS}
-    expect = expected_launches(selector, steps, eval_batches)
+    expect = expected_launches(selector, steps, eval_batches, finetune)
     if counts != expect:
         raise AssertionError(f"{what}: launches {counts}, expected {expect}")
     return counts
@@ -922,21 +954,28 @@ def _kernel_us(evt) -> float:
 def profile_cli(argv, step_s: float, cuda_graph: bool = True, groups=GROUPS):
     """Phase 7: the CLI's training path under ``torch.profiler``: the
     ``Trainer`` that ``run_training`` builds (on the graph path, or eager
-    with ``cuda_graph=False``), fed through ``device_prefetch``; each batch's
-    fetch is marked (after a device sync).  The trainer fetches a batch
-    before the step that augments it, so profiler period k ≥ 2 holds step
-    k − 2: the schedule waits out the first augmentation and ``WARMUP``
-    steps (the graph's capture among them) and records the ``PROFILED``
-    steps after them; ``argv`` must give ``PROFILE_STEPS`` batches."""
+    with ``cuda_graph=False``), or for ``--phase finetune`` the
+    ``FinetuneTrainer`` that ``run_finetune`` builds (phase 13), fed through
+    ``device_prefetch``; each batch's fetch is marked (after a device sync).
+    The pretask trainer fetches a batch before the step that augments it, so
+    profiler period k ≥ 2 holds step k − 2 (a finetune step k − 1): the
+    schedule waits out the first augmentation and ``WARMUP`` steps (the
+    graph's capture among them) and records the ``PROFILED`` steps after
+    them; ``argv`` must give ``PROFILE_STEPS`` batches."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from pcrlv2_tpu_torch.cli.main import prepare
+    from pcrlv2_tpu_torch.cli.main import prepare, prepare_finetune
     from pcrlv2_tpu_torch.data.pipeline import device_prefetch
+    from pcrlv2_tpu_torch.train.finetune import FinetuneTrainer
     from pcrlv2_tpu_torch.train.trainer import Trainer
 
-    model, cfg, loaders, aug_fn, device = prepare(argv)
-    trainer = Trainer(model, cfg, aug_fn, device, cuda_graph=cuda_graph)
+    if "finetune" in argv:
+        cfg, loaders, device, options = prepare_finetune(argv)
+        trainer = FinetuneTrainer(cfg, device=device, cuda_graph=cuda_graph, **options)
+    else:
+        model, cfg, loaders, aug_fn, device = prepare(argv)
+        trainer = Trainer(model, cfg, aug_fn, device, cuda_graph=cuda_graph)
 
     def marked(batches):
         for batch in batches:
@@ -1199,11 +1238,12 @@ def graph_trainer(amp: bool, out: str, cuda_graph: bool, seed: int = 7, mixup=No
     return Trainer(model, cfg, make_luna_aug_fn(**aug_flags), "cuda", cuda_graph=cuda_graph)
 
 
-def run_epochs(trainer, batches: dict, what: str, dim: int = 3):
+def run_epochs(trainer, batches: dict, what: str, dim: int = 3, finetune: bool = False):
     """``trainer.train_epoch`` over ``batches``; every step's metrics copied
     as the step returns (before a replay writes over them); the launch
-    counters set to 0 before and checked after (``dim`` 2: all 0).
-    Returns (metrics, counts)."""
+    counters set to 0 before and checked after (``dim`` 2: all 0).  A
+    ``FinetuneTrainer`` (``finetune``) steps on a batch and returns its
+    metrics alone.  Returns (metrics, counts)."""
     import torch
 
     from pcrlv2_tpu_torch.ops import _build
@@ -1211,10 +1251,11 @@ def run_epochs(trainer, batches: dict, what: str, dim: int = 3):
     seen = []
     step = trainer.step
 
-    def recorded(views, raw_next):
-        metrics, next_views = step(views, raw_next)
+    def recorded(*args):
+        out = step(*args)
+        metrics = out if finetune else out[0]
         seen.append({k: v.clone() for k, v in metrics.items()})
-        return metrics, next_views
+        return out
 
     trainer.step = recorded
     try:
@@ -1222,7 +1263,8 @@ def run_epochs(trainer, batches: dict, what: str, dim: int = 3):
         for epoch, epoch_batches in batches.items():
             trainer.train_epoch(epoch, epoch_batches)
         torch.cuda.synchronize()
-        counts = launched("pallas", len(seen), 0, what) if dim == 3 else no_launches(what)
+        counts = (launched("pallas", len(seen), 0, what, finetune) if dim == 3
+                  else no_launches(what))
     finally:
         del trainer.step
     return seen, counts
@@ -1757,6 +1799,375 @@ def run_bench2d() -> dict:
     return out
 
 
+# Phase 13: finetuning.  The README's 3D recipe finetunes at --b 8
+# (README.md:38-43); the 2D classifier at run2d.sh's 16 images a card
+BATCH_FT = {3: 8, 2: 16}
+FT_EVAL_BATCHES = 2  # eval batches of each finetune CLI run (--eval_batches)
+# the 3D finetune path's launch shapes: one model call a step, at
+# local=True, on the b = 8 volumes (phases 3-4 cover b = 4 and the locals)
+FT_CALLS = {"finetune": (BATCH_FT[3], CALLS["global"][1])}
+FT_KERNELS = ("conv3d_fwd", "conv3d_dw", "head_fwd")  # the kernels it runs (pallas)
+
+
+def finetune_kernel_check() -> dict:
+    """Phase 13: #1 (forward and dx), #2 and #3 at each of the finetune
+    path's launch shapes (``FT_CALLS``), in f32 and bf16 (``--amp``),
+    against their plain versions at phases 3-4's tolerances (``TOL``).  Not
+    timed, and not in the kernels line's sums, which stay one pretask
+    step's."""
+    import torch
+
+    checked, worst, failures = 0, {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for case_fn in (conv_cases, head_cases):
+            for kernel, label, kfn, pfn, _, _, _, kinds in case_fn(dtype, FT_CALLS):
+                if kernel not in FT_KERNELS:
+                    continue
+                got, ref = kfn(), pfn()
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                errs = [rel_err(a, b)[0] for a, b in zip(got, ref)]
+                tols = [TOL[(dname, kind)] for kind in kinds]
+                worst[dname] = max([worst.get(dname, 0.0)]
+                                   + [e / t for e, t in zip(errs, tols)])
+                checked += 1
+                if any(e > t for e, t in zip(errs, tols)):
+                    failures.append(f"{dname} {label}: rel err {errs} > {tols}")
+                del got, ref
+    if failures:
+        raise AssertionError("finetune shapes:\n  " + "\n  ".join(failures))
+    return {"checked": checked, "worst_share_of_tol": worst}
+
+
+def finetune_argv(dim: int, amp: bool, out: str, steps: int, extra=()):
+    return (["--synthetic", "--d", str(dim), "--n", "luna" if dim == 3 else "chest",
+             "--phase", "finetune", "--b", str(BATCH_FT[dim]), "--epochs", "0",
+             "--steps_per_epoch", str(steps), "--seed", "0", "--output", out]
+            + (["--amp"] if amp else []) + list(extra))
+
+
+def finetune_launches(dim: int, steps: int, eval_batches: int, what: str) -> dict:
+    """3D: the counters against ``expected_launches``' finetune form under
+    ``pallas``; 2D: every counter at 0."""
+    return (launched("pallas", steps, eval_batches, what, finetune=True) if dim == 3
+            else no_launches(what))
+
+
+def schema_check(state: dict, n_class: int) -> None:
+    """``state`` has every key and shape of torchvision's ResNet-18
+    (``tests/fixtures/torchvision_resnet18_schema.txt``), ``fc`` n_class × 512."""
+    want = {}
+    for line in open(os.path.join(ROOT, "tests", "fixtures", "torchvision_resnet18_schema.txt")):
+        if line.strip() and not line.startswith("#"):
+            key, rest = line.split(" ", 1)
+            want[key] = tuple(int(d) for d in rest.rsplit(" ", 1)[0].strip("()").split(",")
+                              if d.strip())
+    want.update({"fc.weight": (n_class, 512), "fc.bias": (n_class,)})
+    got = {k: tuple(v.shape) for k, v in state.items()}
+    if got != want:
+        raise AssertionError(f"the 2D finetune .pt is not torchvision's schema: "
+                             f"{sorted(set(got) ^ set(want))[:6]} differ")
+
+
+def run_finetune_cli(dim: int, amp: bool, out: str, steps: int = STEPS) -> dict:
+    """Phase 13: the port's CLI at ``--phase finetune`` (synthetic, ``steps``
+    steps, ``--eval_every 1 --eval_batches 2``) on the graphs, the launch
+    counters set to 0 just before and read just after; every loss and
+    metric finite, train and eval (2D: ``eval_auc`` too); the ``.pt``: 3D
+    loading strictly into ``PCRLv23d``, 2D torchvision's schema with an
+    ``fc`` moved from its initial weights.  Then the step time: the same
+    path (``prepare_finetune`` → ``FinetuneTrainer``) over one epoch, the
+    device synchronised after each step (each iteration's own time, as
+    ``BT`` at ``--log_every 1``), and peak memory."""
+    import torch
+
+    from pcrlv2_tpu_torch.cli.main import main as cli_main
+    from pcrlv2_tpu_torch.cli.main import prepare_finetune
+    from pcrlv2_tpu_torch.data.pipeline import device_prefetch
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.train.checkpoint import import_pcrlv23d, load_reference_checkpoint
+    from pcrlv2_tpu_torch.train.finetune import ChestClassifier, FinetuneTrainer
+
+    label = f"finetune CLI --d {dim}{' --amp' if amp else ''}"
+    extra = ["--eval_every", "1", "--eval_batches", str(FT_EVAL_BATCHES)]
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    trainer = cli_main(finetune_argv(dim, amp, out, steps, extra))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = finetune_launches(dim, steps, FT_EVAL_BATCHES, label)
+    rows = [json.loads(s) for s in open(os.path.join(out, "metrics.jsonl"))]
+    train_rows = [r for r in rows if "loss" in r]
+    evals = [r for r in rows if "eval_loss" in r]
+    if len(train_rows) != 1 or len(evals) != 1 or not all(
+            math.isfinite(v) for r in train_rows + evals for k, v in r.items()
+            if k in ("loss", "metric") or k.startswith("eval_")):
+        raise AssertionError(f"{label}: rows {train_rows}, eval {evals}")
+    if dim == 2 and "eval_auc" not in evals[0]:
+        raise AssertionError(f"{label}: no eval_auc in {evals[0]}")
+    path = os.path.join(out, f"pcrlv2_{'luna' if dim == 3 else 'chest'}_finetune_1.0_0.pt")
+    if dim == 3:
+        import_pcrlv23d(path, PCRLv23d(device="cuda", seed=1))
+    else:
+        state = load_reference_checkpoint(path)["state_dict"]
+        schema_check(state, 14)
+        fresh = ChestClassifier(seed=0, device="cuda")
+        if torch.equal(state["fc.weight"], fresh.fc.weight.detach().cpu()):
+            raise AssertionError(f"{label}: fc did not move")
+    graphs, capture_s = len(trainer.captured.graphs), list(trainer.captured.capture_s.values())
+    del trainer  # its model, optimizer and graph pool: not counted in the timed run's peak
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, loaders, device, options = prepare_finetune(
+        finetune_argv(dim, amp, os.path.join(out, "timed"), steps))
+    allocated_before = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    timer = FinetuneTrainer(cfg, device=device, **options)
+    step_s = []
+
+    def timed(batches):
+        t = time.perf_counter()
+        for batch in batches:
+            yield batch
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - t)
+            t = now
+
+    try:
+        with contextlib.closing(device_prefetch(loaders["train"].epoch(0), device)) as batches:
+            timer.train_epoch(0, timed(batches))
+    finally:
+        timer.logger.close()
+    return {"counts": counts, "wall_s": wall, "graphs": graphs, "capture_s": capture_s,
+            "loss": train_rows[0]["loss"], "metric": train_rows[0]["metric"], "eval": evals[0],
+            "step_s": step_s, "step_s_median": statistics.median(step_s[WARMUP:]),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "allocated_gib_before": allocated_before}
+
+
+def finetune_disk_run(tmp: str) -> dict:
+    """Phase 13: a pretask ``.pt`` (the pretask CLI, one step), then 3D
+    finetuning from it (``--weight``) on a structured phantom tree with its
+    masks beside the crops (``--mask_dir`` = the tree; 10 subsets × 4 UIDs ×
+    2 pairs, ``--ratio 0.5``: 16 train crops, 2 steps an epoch at b = 8),
+    ``--epochs 1 --eval_every 1 --eval_batches 2 --save_every 1``, on the
+    graphs: the loader's samples carry the mask files' crop-0 masks, the
+    launches are exact, every eval loss and dice finite, and each epoch's
+    ``.pt`` loads strictly."""
+    import numpy as np
+    import torch
+
+    from pcrlv2_tpu_torch.cli.main import main as cli_main
+    from pcrlv2_tpu_torch.cli.main import prepare_finetune
+    from pcrlv2_tpu_torch.data.pipeline import mask_path_for, write_structured_luna_tree
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.train.checkpoint import import_pcrlv23d
+    from pcrlv2_tpu_torch.train.finetune import run_finetune
+
+    pretask = os.path.join(tmp, "pretask")
+    cli_main(cli_argv(False, pretask, 1))
+    weight = os.path.join(pretask, "pcrlv2_luna_pretask_1.0_0.pt")
+    tree, out = os.path.join(tmp, "tree"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    uids = write_structured_luna_tree(tree, n_subsets=10, uids_per_subset=4, pairs_per_uid=2)
+    write_s = time.perf_counter() - t0
+    uid_list = os.path.join(tmp, "luna_train.txt")
+    with open(uid_list, "w") as fh:
+        fh.write("".join(u + "\n" for u in uids))
+    cfg, loaders, device, options = prepare_finetune(
+        ["--data", tree, "--d", "3", "--n", "luna", "--phase", "finetune", "--train_list",
+         uid_list, "--ratio", "0.5", "--mask_dir", tree, "--weight", weight, "--b",
+         str(BATCH_FT[3]), "--epochs", "1", "--eval_every", "1", "--eval_batches",
+         str(FT_EVAL_BATCHES), "--save_every", "1", "--seed", "0", "--output", out])
+    train = loaders["train"]
+    sample = train.read_fn(train.paths[0])
+    if not np.array_equal(sample["mask"][..., 0],
+                          np.load(mask_path_for(train.paths[0], tree, tree))[0]):
+        raise AssertionError("the finetune loader's mask is not the mask file's crop 0")
+    steps = len(train)
+    _build.launches.clear()
+    run_finetune(cfg, train, eval_loader=loaders["eval"], device=device, **options)
+    torch.cuda.synchronize()
+    counts = launched("pallas", 2 * steps, 2 * FT_EVAL_BATCHES, "3D finetune disk CLI",
+                      finetune=True)
+    rows = [json.loads(s) for s in open(os.path.join(out, "metrics.jsonl"))]
+    evals = [r for r in rows if "eval_loss" in r]
+    if [r["epoch"] for r in evals] != [0, 1] or not all(
+            math.isfinite(r[k]) for r in evals for k in ("eval_loss", "eval_dice")):
+        raise AssertionError(f"finetune eval rows {evals}")
+    for epoch in (0, 1):
+        import_pcrlv23d(os.path.join(out, f"pcrlv2_luna_finetune_0.5_{epoch}.pt"),
+                        PCRLv23d(device="cuda", seed=1))
+    return {"tree_write_s": write_s, "steps_per_epoch": steps, "counts": counts,
+            "losses": [r["loss"] for r in rows if "loss" in r], "evals": evals}
+
+
+def finetune_trainer(dim: int, amp: bool, out: str, cuda_graph: bool):
+    """A finetune trainer from one seed (epochs 0-2 of the cosine LR); the
+    2D classifier keeps its dropout."""
+    from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from pcrlv2_tpu_torch.train.finetune import FinetuneTrainer
+    from pcrlv2_tpu_torch.train.trainer import TrainConfig
+
+    cfg = TrainConfig(n="luna" if dim == 3 else "chest", phase="finetune", b=BATCH_FT[dim],
+                      epochs=2, lr=1e-2, seed=3, amp=amp, output=out)
+    return FinetuneTrainer(cfg, dim=dim, n_class=14 if dim == 2 else 1,
+                           policy=DEFAULT_POLICY if amp else PARITY_POLICY, device="cuda",
+                           cuda_graph=cuda_graph)
+
+
+def finetune_batches(dim: int, seed: int) -> dict:
+    """Raw finetune batches on the card, {epoch: [batch, ...]}: 3D LUNA crop
+    pairs; 2D uint8 grey 224² images (the chest reader's form) and 14
+    labels."""
+    import numpy as np
+    import torch
+
+    from pcrlv2_tpu_torch.data.pipeline import synthetic_luna_batch
+
+    def batch(s):
+        if dim == 3:
+            raw = {"pair": synthetic_luna_batch(BATCH_FT[3], seed=s)["pair"]}
+        else:
+            rng = np.random.RandomState(s)
+            raw = {"image": rng.randint(0, 256, (BATCH_FT[2], 224, 224, 1)).astype(np.uint8),
+                   "label": rng.randint(0, 2, (BATCH_FT[2], 14)).astype(np.float32)}
+        return {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+
+    return {epoch: [batch(seed + 10 * epoch + i) for i in range(n)]
+            for epoch, n in enumerate(GRAPH_EPOCHS)}
+
+
+def finetune_identity(dim: int, amp: bool, tmp: str) -> dict:
+    """Phase 13: phase 10's check on the finetune step: two epochs (a new LR
+    in the second) on the eager loop and on the graphs from one state and
+    seed; every parameter, BN statistic, momentum, the step counter, the
+    dropout generator's state (2D) and every step's metrics bit-identical,
+    and the launches exact under replay (2D: none)."""
+    batches = finetune_batches(dim, seed=20)
+    label = f"finetune {dim}D " + ("--amp" if amp else "f32")
+    eager = finetune_trainer(dim, amp, os.path.join(tmp, "eager"), cuda_graph=False)
+    graph = finetune_trainer(dim, amp, os.path.join(tmp, "graph"), cuda_graph=True)
+    m_eager, _ = run_epochs(eager, batches, f"eager loop {label}", dim, finetune=True)
+    m_graph, counts = run_epochs(graph, batches, f"graph replays {label}", dim, finetune=True)
+    diffs = differences(state_leaves(eager, m_eager), state_leaves(graph, m_graph))
+    if diffs:
+        raise AssertionError(
+            f"{label}: the graph replays differ from the eager loop in {len(diffs)} "
+            f"leaves; largest first: " + ", ".join(f"{k} ({d:.3e})" for k, d in diffs[:12]))
+    for t in (eager, graph):
+        t.logger.close()
+    return {"steps": len(m_graph), "leaves": len(state_leaves(graph, m_graph)),
+            "counts": counts, "graphs": len(graph.captured.graphs),
+            "capture_s": list(graph.captured.capture_s.values()),
+            "losses": [float(m["loss"]) for m in m_graph]}
+
+
+def sync_free_finetune_step(dim: int) -> dict:
+    """Phase 13: one finetune step at full width on device-resident data
+    (3D: the pseudo-mask computed inside; 2D: uint8 grey images, dropout on
+    a device generator), after a warm-up step, under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.train.finetune import (ChestClassifier, finetune_step_2d,
+                                                 finetune_step_3d, images_and_labels,
+                                                 volumes_and_masks)
+    from pcrlv2_tpu_torch.train.step import TrainState
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = finetune_batches(dim, seed=30)[0][0]
+    lr = torch.full((), 1e-3, device=dev)
+    if dim == 3:
+        state = TrainState(PCRLv23d(device="cuda", seed=7))
+
+        def step():
+            return finetune_step_3d(state, *volumes_and_masks(batch), lr)
+    else:
+        state = TrainState(ChestClassifier(seed=7, device="cuda"))
+
+        def step():
+            return finetune_step_2d(state, *images_and_labels(batch), lr, gen)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step()
+        host_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    loss, steps = float(metrics["loss"]), int(state.step)
+    if not (math.isfinite(loss) and steps == 2):
+        raise AssertionError(f"sync-free finetune step --d {dim}: loss {loss}, step {steps}")
+    return {"loss": loss, "host_s": host_s}
+
+
+def finetune_phase(profiles: dict) -> dict:
+    """Phase 13 (the module docstring's item 13); the profiles go into
+    ``profiles``."""
+    print("[13] finetuning (--phase finetune)", flush=True)
+    t13 = time.perf_counter()
+    ft = {"kernel_check": finetune_kernel_check()}
+    print(f"[13] #1 (fwd, dx), #2, #3 at the finetune shapes (b = {BATCH_FT[3]}): "
+          f"{ft['kernel_check']['checked']} launches against their plain versions, largest "
+          f"error { {k: round(v, 3) for k, v in ft['kernel_check']['worst_share_of_tol'].items()} }"
+          f" of its tolerance", flush=True)
+    for dim in (3, 2):
+        for amp in (False, True):
+            name = f"{dim}d_{'amp' if amp else 'f32'}"
+            with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+                ft[name] = r = run_finetune_cli(dim, amp, tmp)
+                profiles["finetune_" + name] = p = profile_cli(
+                    finetune_argv(dim, amp, os.path.join(tmp, "prof"), PROFILE_STEPS),
+                    r["step_s_median"], groups=GROUPS if dim == 3 else GROUPS2D)
+            print(f"[13] CLI --d {dim} --phase finetune --b {BATCH_FT[dim]}"
+                  f"{' --amp' if amp else ''}: launches "
+                  f"{ {k: v for k, v in r['counts'].items() if v} } for {STEPS} steps and "
+                  f"{FT_EVAL_BATCHES} eval batches, step s "
+                  f"{[round(x, 4) for x in r['step_s']]} (median after {WARMUP}: "
+                  f"{r['step_s_median']:.4f}), captures "
+                  f"{[round(c, 3) for c in r['capture_s']]} s, loss {r['loss']:.5f}, "
+                  f"metric {r['metric']:.5f}, eval {r['eval']}, peak "
+                  f"{r['peak_mem_gib']:.2f} GiB ({r['allocated_gib_before']:.2f} GiB held "
+                  f"before the timed run)", flush=True)
+            print_profile("finetune_" + name, p)
+    with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+        ft["disk"] = d = finetune_disk_run(tmp)
+    print(f"[13] 3D finetune from a pretask .pt (--weight) on a phantom tree with "
+          f"--mask_dir, 2 epochs of {d['steps_per_epoch']} steps: masks read from the "
+          f"tree, launches {d['counts']}, losses {[round(x, 5) for x in d['losses']]}, "
+          f"eval {[{k: round(v, 5) for k, v in e.items() if k != 'ts'} for e in d['evals']]}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+        for dim in (3, 2):
+            for amp in (False, True):
+                name = f"identity_{dim}d_{'amp' if amp else 'f32'}"
+                ft[name] = g = finetune_identity(dim, amp, os.path.join(tmp, name))
+                print(f"[13] finetune {dim}D {'--amp' if amp else 'f32'}: {g['steps']} "
+                      f"steps over two epochs, {g['graphs']} graphs captured in "
+                      f"{[round(c, 3) for c in g['capture_s']]} s: all {g['leaves']} "
+                      f"leaves bit-identical to the eager loop; launches "
+                      f"{ {k: v for k, v in g['counts'].items() if v} }", flush=True)
+        for dim in (3, 2):
+            ft[f"sync_free_{dim}d"] = sf = sync_free_finetune_step(dim)
+            print(f"[13] one {dim}D finetune step under set_sync_debug_mode('error'): no "
+                  f"sync; loss {sf['loss']:.5f}, host {sf['host_s']:.4f} s to enqueue",
+                  flush=True)
+    ft["phase_s"] = time.perf_counter() - t13
+    print(f"[13] phase 13 took {ft['phase_s']:.1f} s", flush=True)
+    return ft
+
+
 def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
     """One kernel of the kernels line, from its summary ``s``.  ``bf16_ms``,
     ``bf16_bound_ms`` and ``bf16_library_ms`` are its bf16 sums; the tools'
@@ -2058,6 +2469,8 @@ def main() -> int:
         chest["phase_s"] = time.perf_counter() - t12
         print(f"[12] phase 12 took {chest['phase_s']:.1f} s", flush=True)
 
+        ft = finetune_phase(profiles)
+
         kernels = [kernel_entry(name, src, replaces, runs[LAUNCHED_IN[name]]["counts"][name],
                                 summary[name]) for name, (src, replaces) in KERNELS.items()]
         kernels += [kernel_entry(name, src, replaces, tools["counts"][name], tool_summary[name])
@@ -2070,7 +2483,8 @@ def main() -> int:
                        "runs": runs, "sync_free_step": sync, "profiles": profiles,
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
                        "tool_odd_rows": tool_odd_rows, "tool_summary": tool_summary,
-                       "graph": graph, "surface": surface, "chest": chest}, fh,
+                       "graph": graph, "surface": surface, "chest": chest,
+                       "finetune": ft}, fh,
                       indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1
         traceback.print_exc()

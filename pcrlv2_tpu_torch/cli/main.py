@@ -13,10 +13,17 @@ and ``pcrlv2_tpu/cli/main.py``).
         [--chest_canvas 0] [--chest_cache auto|off|<dir>] \
         [--encoder_weights resnet18.pt] [--amp]
     python -m pcrlv2_tpu_torch.cli.main --synthetic --d 2 --n chest [--b 16]
+    python -m pcrlv2_tpu_torch.cli.main --d 3 --n luna --phase finetune \
+        --data <processed tree> --train_list <uid list> --ratio 0.5 \
+        [--weight <pretask .pt>] [--mask_dir <mask tree>] [--eval_every 1]
+    python -m pcrlv2_tpu_torch.cli.main --d 2 --n chest --phase finetune \
+        --data <chest image dir> [--weight <.pt>] [--n_class 14]
+    python -m pcrlv2_tpu_torch.cli.main --synthetic --d 3|2 --phase finetune
 
-Runs 3D LUNA or 2D chest X-ray pretraining on one CUDA device (``--device
-cpu`` only when asked), each step after the first a CUDA graph replay
-(``train/trainer.py``).
+Runs 3D LUNA or 2D chest X-ray pretraining, or the downstream finetuning
+(3D segmentation, 2D 14-label classification; ``train/finetune.py``), on
+one CUDA device (``--device cpu`` only when asked), each step after the
+first a CUDA graph replay (``train/trainer.py``).
 ``PCRL_CONV3D`` (``pallas``, the default, ``packed`` or ``im2col``) picks the
 3³ conv kernels; the graphs keep the kernels they captured.  ``PCRL_AFFINE``
 (``shear``, the default, or ``exact``) picks the affine's resampler.  On
@@ -26,7 +33,11 @@ The chest images are decoded once (Pillow) onto a square canvas of their
 native size (``--chest_canvas 0``, detected from every image, remembered in a
 sidecar of the output directory) and kept as uint8 arrays in a cache
 (``--chest_cache``); the 2D encoder starts from scratch unless
-``--encoder_weights`` names a torchvision ResNet-18 state_dict.
+``--encoder_weights`` names a torchvision ResNet-18 state_dict.  Finetuning
+starts from ``--weight`` (a pretask ``.pt``; 2D: its encoder, or a bare
+torchvision state_dict) and trains on the complement of the pretrain UID
+split (3D; ``--ratio`` < 1) or the chest list's top ``--ratio`` at 224²
+(2D), evaluating on folds 7-9 or ``chest_valid.txt`` under ``--eval_every``.
 Paths not ported yet stop naming the JAX module they wait for.
 """
 
@@ -48,13 +59,15 @@ from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
 from pcrlv2_tpu_torch.data.augment2d import make_chest_aug_fn
 from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
 from pcrlv2_tpu_torch.data.make_manifests import write_luna_manifest
-from pcrlv2_tpu_torch.data.manifests import (get_chest_list, get_luna_list,
-                                             get_luna_pretrain_list)
+from pcrlv2_tpu_torch.data.manifests import (get_chest_list, get_luna_finetune_list,
+                                             get_luna_list, get_luna_pretrain_list)
 from pcrlv2_tpu_torch.data.pipeline import (CachedChestReader, HostLoader, LunaBatchReader,
                                             load_chest_sample, load_luna_sample,
-                                            synthetic_chest_batch, synthetic_luna_batch)
+                                            make_luna_mask_reader, synthetic_chest_batch,
+                                            synthetic_luna_batch)
 from pcrlv2_tpu_torch.models.unet2d import PCRLv2
 from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+from pcrlv2_tpu_torch.train.finetune import run_finetune
 from pcrlv2_tpu_torch.train.trainer import TrainConfig, run_training
 
 DEFAULT_TRAIN_LIST = "train_val_txt/luna_train.txt"
@@ -93,6 +106,20 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torchvision ResNet-18 state_dict (.pt) that "
                              "initializes the 2D encoder, the ImageNet-init "
                              "analog of the reference's default")
+    parser.add_argument("--weight", default=None, metavar="PT",
+                        help="pretrained .pt --phase finetune starts from (ours "
+                             "or the reference's): 2D loads its encoder (fc.* "
+                             "dropped, README.md:40-44), 3D the whole PCRLv23d "
+                             "(README.md:50-54)")
+    parser.add_argument("--mask_dir", default=None, metavar="DIR",
+                        help="3D finetune: segmentation mask tree mirroring the "
+                             "crop tree (subset{i}/{uid}_mask_{k}.npy; the --data "
+                             "root itself when the masks lie beside the crops); "
+                             "without it the target is the intensity-threshold "
+                             "pseudo-mask")
+    parser.add_argument("--n_class", default=14, type=int,
+                        help="2D finetune: classifier labels (14 = NIH "
+                             "ChestX-ray); 3D segments one channel")
     parser.add_argument("--chest_canvas", default=0, type=int,
                         help="square canvas chest X-rays are decoded onto; 0 = "
                              "the largest source's size, detected from every "
@@ -135,7 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--use_pixel_shuffle", action="store_true", default=False,
                         help="local pixel shuffling (dormant upstream, "
                              "lunaDataset.py:43-44)")
-    parser.add_argument("--spatial", default=1, type=int, help="(not ported yet)")
+    parser.add_argument("--spatial", default=1, type=int,
+                        help="(not ported yet; --phase finetune refuses it)")
     parser.add_argument("--multihost", action="store_true", default=False,
                         help="(not ported yet)")
     return parser
@@ -149,18 +177,25 @@ class SyntheticLoader:
     """``steps`` in-memory raw batches per epoch, seeded per batch as the JAX
     CLI's synthetic loader does: LUNA crops (``dim`` 3) or chest images on a
     ``canvas``² float canvas (``dim`` 2; the JAX CLI's default, the NIH
-    size the real default would detect, is 1024)."""
+    size the real default would detect, is 1024, and 224 for finetuning),
+    with ``n_class`` binary labels a chest image when ``n_class`` > 0
+    (``RandomState(seed).randint(0, 2, (b, n_class))``, the finetune
+    batches)."""
 
     def __init__(self, batch_size: int, steps: int, seed: int, dim: int = 3,
-                 canvas: int = 1024):
+                 canvas: int = 1024, n_class: int = 0):
         self.batch_size, self.steps, self.seed = batch_size, steps, seed
-        self.dim, self.canvas = dim, canvas
+        self.dim, self.canvas, self.n_class = dim, canvas, n_class
 
     def epoch(self, epoch: int):
         for i in range(self.steps):
             seed = self.seed + epoch * self.steps + i
             if self.dim == 2:
-                yield synthetic_chest_batch(self.batch_size, canvas=self.canvas, seed=seed)
+                batch = synthetic_chest_batch(self.batch_size, canvas=self.canvas, seed=seed)
+                if self.n_class:
+                    batch["label"] = np.random.RandomState(seed).randint(
+                        0, 2, (self.batch_size, self.n_class)).astype(np.float32)
+                yield batch
             else:
                 yield synthetic_luna_batch(self.batch_size, seed=seed)
 
@@ -288,16 +323,22 @@ def chest_reader(args, canvas: int):
     return partial(load_chest_sample, canvas=canvas)
 
 
+def chest_list(args) -> str:
+    """The chest image list: ``--train_list``, where a luna list's name
+    stands for ``chest_train.txt`` beside it."""
+    txt = args.train_list
+    if "luna" in os.path.basename(txt):
+        txt = os.path.join(os.path.dirname(txt) or ".", "chest_train.txt")
+    return txt
+
+
 def chest_pretask_loaders(args) -> dict:
     """Train and eval loaders over a chest image list (the JAX CLI's
     ``DataGenerator.pcrlv2_chest_pretask``): the top ``--ratio`` of the list,
     train shuffled per epoch (ragged tail dropped), eval the same images in
     order, every one (the reference's eval loader aliases the train
     pipeline; a fixed order keeps the metric on the same samples)."""
-    txt = args.train_list
-    if "luna" in os.path.basename(txt):
-        txt = os.path.join(os.path.dirname(txt) or ".", "chest_train.txt")
-    names, _ = get_chest_list(txt, args.data)
+    names, _ = get_chest_list(chest_list(args), args.data)
     names = names[: int(len(names) * args.ratio)]
     print(f"total train images {len(names)}")
     canvas = args.chest_canvas if args.chest_canvas > 0 else detect_chest_canvas(
@@ -310,31 +351,110 @@ def chest_pretask_loaders(args) -> dict:
     return {"train": train, "eval": evaluate}
 
 
-def prepare(argv=None):
-    """Parse ``argv`` and build what ``main`` trains: ``(model, cfg,
-    loaders, aug_fn, device)``, ``loaders`` = ``{"train", "eval"}`` for
-    ``run_training``.  ``--d 3`` trains ``PCRLv23d`` on LUNA crops, ``--d 2``
-    ``PCRLv2`` on chest X-rays."""
+def luna_finetune_loaders(args) -> dict:
+    """Train and eval loaders of 3D finetuning (the JAX CLI's
+    ``DataGenerator.pcrlv2_luna_finetune``): the UIDs after the top
+    ``--ratio`` of the list (the complement of the pretrain split) in folds
+    0-6, shuffled per epoch, ragged tail dropped; under ``--eval_every``,
+    folds 7-9 in order, every sample.  With ``--mask_dir`` each sample
+    carries its mask (``make_luna_mask_reader``)."""
+    if not os.path.exists(args.train_list):
+        raise SystemExit(f"train list not found: {args.train_list}")
+    uids = get_luna_finetune_list(args.ratio, args.train_list)
+    if not uids:
+        raise SystemExit(f"--ratio {args.ratio} leaves no finetune UIDs (the finetune split "
+                         "is the COMPLEMENT of the pretrain split; use --ratio < 1.0)")
+    # the held-out folds are read only when an eval pass will use them
+    eval_folds = range(7, 10) if args.eval_every > 0 else ()
+    x_train, x_valid, _ = get_luna_list(args.data, train_fold=range(7), valid_fold=eval_folds,
+                                        test_fold=(), suffix="_global_", file_list=uids)
+    print(f"finetune train images {len(x_train)}"
+          + (f", validation images {len(x_valid)}" if eval_folds else ""))
+    if args.mask_dir:
+        if not os.path.isdir(args.mask_dir):
+            raise SystemExit(f"--mask_dir not found: {args.mask_dir}")
+        read_fn = make_luna_mask_reader(args.data, args.mask_dir)
+        print(f"==> 3D finetune against REAL masks from {args.mask_dir}")
+    else:
+        read_fn = load_luna_sample
+        print("==> 3D finetune against intensity-threshold pseudo-masks (documented "
+              "placeholder; pass --mask_dir <tree> for real segmentation GT)")
+    train = HostLoader(x_train, args.b, read_fn, shuffle=True, seed=args.seed,
+                       num_workers=args.workers)
+    evaluate = (HostLoader(x_valid, args.b, read_fn, shuffle=False, seed=args.seed,
+                           num_workers=args.workers, drop_last=False)
+                if x_valid else None)
+    return {"train": train, "eval": evaluate}
+
+
+def _labelled(read, names, labels):
+    """``read`` plus each image's labels."""
+    label_of = {n: np.asarray(lab, np.float32) for n, lab in zip(names, labels)}
+    return lambda path: {**read(path), "label": label_of[path]}
+
+
+def chest_finetune_loaders(args) -> dict:
+    """Train and eval loaders of 2D finetuning (the JAX CLI's
+    ``DataGenerator.pcrlv2_chest_finetune``): the top ``--ratio`` of the
+    chest list with its 14 labels, decoded onto the classifier's 224²
+    canvas, shuffled per epoch; under ``--eval_every``, ``chest_valid.txt``
+    beside the list, in order, every image (without it, no eval pass)."""
+    txt = chest_list(args)
+    names, labels = get_chest_list(txt, args.data)
+    keep = max(1, int(len(names) * args.ratio))
+    names, labels = names[:keep], labels[:keep]
+    print(f"finetune train images {len(names)} (ratio {args.ratio})")
+    read = chest_reader(args, canvas=224)
+    train = HostLoader(names, args.b, _labelled(read, names, labels), shuffle=True,
+                       seed=args.seed, num_workers=args.workers)
+    evaluate = None
+    if args.eval_every > 0:
+        vtxt = os.path.join(os.path.dirname(txt) or ".", "chest_valid.txt")
+        if os.path.exists(vtxt):
+            vnames, vlabels = get_chest_list(vtxt, args.data)
+            print(f"finetune validation images {len(vnames)}")
+            evaluate = HostLoader(vnames, args.b, _labelled(read, vnames, vlabels),
+                                  shuffle=False, seed=args.seed, num_workers=args.workers,
+                                  drop_last=False)
+        else:
+            print(f"WARNING: --eval_every set but {vtxt} not found — finetune runs without "
+                  "an eval pass")
+    return {"train": train, "eval": evaluate}
+
+
+def configure(argv=None):
+    """Parse ``argv``, refuse what the port does not run, and build what
+    both phases share: ``(args, device, policy, cfg)``."""
     args = build_parser().parse_args(argv)
     if args.d not in (2, 3):
         raise SystemExit(f"unsupported --d {args.d}")
     if args.model != "pcrlv2" or args.phase not in ("pretask", "finetune"):
         raise SystemExit(f"no trainer for (model={args.model}, phase={args.phase})")
-    if args.phase == "finetune":
-        _not_ported("--phase finetune", "pcrlv2_tpu/train/finetune.py")
+    finetune = args.phase == "finetune"
+    if finetune and args.multihost:
+        raise SystemExit("--phase finetune does not support --multihost (the finetune "
+                         "trainer runs single-process); launch it on one host")
+    if finetune and args.spatial > 1:
+        raise SystemExit("--phase finetune does not support --spatial")
     if args.spatial > 1:
         _not_ported("--spatial", "pcrlv2_tpu/parallel/spatial_train.py")
     if args.multihost or len([g for g in str(args.gpus).split(",") if g]) > 1:
         _not_ported("training on more than one device", "pcrlv2_tpu/core/mesh.py")
     if args.encoder_weights and args.d != 2:
         raise SystemExit("--encoder_weights applies to the 2D pipeline (--d 2)")
+    if args.encoder_weights and finetune:
+        raise SystemExit("--encoder_weights initializes the 2D pretask encoder; --phase "
+                         "finetune starts from --weight")
+    if args.weight and not finetune:
+        raise SystemExit("--weight applies to --phase finetune")
+    if args.mask_dir and not (finetune and args.d == 3):
+        raise SystemExit("--mask_dir applies to --d 3 --phase finetune")
     if not args.synthetic:
         if not args.data:
             raise SystemExit("--data is required (or pass --synthetic)")
         if args.n != {3: "luna", 2: "chest"}[args.d]:
             raise SystemExit(f"--d {args.d} --n {args.n}: the 3D pipeline reads --n luna, "
                              "the 2D one --n chest")
-
     device = resolve_device(args.device)
     policy = DEFAULT_POLICY if args.amp else PARITY_POLICY
     cfg = TrainConfig(model=args.model, n=args.n, phase=args.phase, b=args.b,
@@ -346,6 +466,18 @@ def prepare(argv=None):
                       save_every=args.save_every, resume=args.resume,
                       profile_dir=args.profile_dir, mixup=args.mixup,
                       encoder_weights=args.encoder_weights)
+    return args, device, policy, cfg
+
+
+def prepare(argv=None):
+    """Parse ``argv`` and build what ``main`` pretrains: ``(model, cfg,
+    loaders, aug_fn, device)``, ``loaders`` = ``{"train", "eval"}`` for
+    ``run_training``.  ``--d 3`` trains ``PCRLv23d`` on LUNA crops, ``--d 2``
+    ``PCRLv2`` on chest X-rays."""
+    args, device, policy, cfg = configure(argv)
+    if args.phase != "pretask":
+        raise SystemExit("prepare builds --phase pretask; --phase finetune is "
+                         "prepare_finetune's")
     if args.synthetic:
         loaders = {"train": SyntheticLoader(args.b, args.steps_per_epoch or 4, args.seed,
                                             dim=args.d, canvas=args.chest_canvas or 1024),
@@ -367,8 +499,41 @@ def prepare(argv=None):
     return model, cfg, loaders, aug_fn, device
 
 
+def prepare_finetune(argv=None):
+    """Parse ``argv`` (``--phase finetune``) and build what ``main``
+    finetunes: ``(cfg, loaders, device, options)``, for ``run_finetune(cfg,
+    loaders["train"], eval_loader=loaders["eval"], device=device,
+    **options)``; ``options`` = dim, n_class (1 in 3D), policy, weight.
+    Synthetic data: 3D LUNA crops, or 2D images on a 224² canvas with
+    ``--n_class`` labels; a second loader is the eval split under
+    ``--eval_every``."""
+    args, device, policy, cfg = configure(argv)
+    if args.phase != "finetune":
+        raise SystemExit("prepare_finetune builds --phase finetune")
+    n_class = args.n_class if args.d == 2 else 1
+    if args.synthetic:
+        def loader():
+            return SyntheticLoader(args.b, args.steps_per_epoch or 4, args.seed, dim=args.d,
+                                   canvas=args.chest_canvas or 224,
+                                   n_class=n_class if args.d == 2 else 0)
+        loaders = {"train": loader(), "eval": loader() if args.eval_every > 0 else None}
+    else:
+        loaders = (luna_finetune_loaders if args.d == 3 else chest_finetune_loaders)(args)
+        if args.steps_per_epoch is not None:
+            loaders["train"] = Capped(loaders["train"], args.steps_per_epoch)
+    return cfg, loaders, device, {"dim": args.d, "n_class": n_class, "policy": policy,
+                                  "weight": args.weight}
+
+
 def main(argv=None):
-    """Train as ``argv`` says; returns the ``Trainer``."""
+    """Train as ``argv`` says; returns the ``Trainer`` (pretask) or the
+    ``FinetuneTrainer``."""
+    if build_parser().parse_args(argv).phase == "finetune":
+        cfg, loaders, device, options = prepare_finetune(argv)
+        print(f"finetuning pcrlv2 {options['dim']}d (n_class={options['n_class']}) "
+              f"on {device}")
+        return run_finetune(cfg, loaders["train"], eval_loader=loaders["eval"],
+                            device=device, **options)
     model, cfg, loaders, aug_fn, device = prepare(argv)
     print(f"training pcrlv2 {model.dim}d on {device}")
     return run_training(model, cfg, loaders["train"], aug_fn, device,

@@ -35,6 +35,15 @@ def get_luna_pretrain_list(ratio: float,
     return uids[: int(len(uids) * ratio)]
 
 
+def get_luna_finetune_list(ratio: float,
+                           txt_path: str = "train_val_txt/luna_train.txt") -> List[str]:
+    """The UIDs after the top ``ratio``: the complement of the pretrain split,
+    which finetuning trains on (reference ``utils.py:30-35``)."""
+    with open(txt_path) as f:
+        uids = [line.strip("\n") for line in f if line.strip()]
+    return uids[int(len(uids) * ratio):]
+
+
 def get_luna_list(data_dir: str, train_fold: Sequence[int], valid_fold: Sequence[int],
                   test_fold: Sequence[int], suffix: str = "_global_",
                   file_list: Sequence[str] | None = None

@@ -5,9 +5,9 @@ and batches them (``HostLoader``: per sample on a thread pool —
 ``load_luna_sample``, or ``load_chest_sample`` / ``CachedChestReader`` for
 chest X-rays — or, for LUNA, a batch at a time with ``LunaBatchReader``, the
 native C++ reader of ``pcrlv2_tpu_torch/native.py``), and keeps the next
-batches in flight while the device computes (``device_prefetch``).  The finetune mask
-reader (``pcrlv2_tpu/data/pipeline.py::make_luna_mask_reader``) is not
-ported yet.
+batches in flight while the device computes (``device_prefetch``).  3D
+finetuning reads a segmentation mask beside each crop pair
+(``make_luna_mask_reader``).
 """
 
 from __future__ import annotations
@@ -39,6 +39,40 @@ def load_luna_sample(global_path: str, dtype=np.float32) -> dict:
     pair = np.load(global_path)
     local = np.load(global_path.replace("global", "local"))
     return {"pair": np.asarray(pair, dtype), "locals": np.asarray(local, dtype)}
+
+
+def mask_path_for(global_path: str, mask_dir: str, data_root: str) -> str:
+    """Where ``--mask_dir`` keeps the mask of a crop pair: the same path
+    under ``mask_dir`` as under ``data_root``, ``_global_`` → ``_mask_`` in
+    the file name (so ``mask_dir`` = ``data_root`` means masks beside the
+    crops)."""
+    rel = os.path.relpath(global_path, data_root)
+    return os.path.join(mask_dir, rel.replace("_global_", "_mask_"))
+
+
+def make_luna_mask_reader(data_root: str, mask_dir: str,
+                          dtype=np.float32) -> Callable[[str], dict]:
+    """``load_luna_sample`` plus ``mask``: the crop's segmentation mask from
+    the ``--mask_dir`` tree (``mask_path_for``), (X, Y, Z, 1) float32.  A
+    mask file holds (2, X, Y, Z), one mask per crop of the pair, of which
+    crop 0's is taken, or (X, Y, Z).  A missing mask raises, naming the path
+    it was looked for at."""
+
+    def read(global_path: str) -> dict:
+        sample = load_luna_sample(global_path, dtype)
+        mpath = mask_path_for(global_path, mask_dir, data_root)
+        try:
+            mask = np.load(mpath)
+        except FileNotFoundError:
+            raise FileNotFoundError(
+                f"--mask_dir: no mask for {global_path} (expected {mpath}; the mask "
+                "tree must mirror the crop tree with _global_ → _mask_)") from None
+        if mask.ndim == 4:
+            mask = mask[0]
+        sample["mask"] = np.asarray(mask, np.float32)[..., None]
+        return sample
+
+    return read
 
 
 def load_chest_sample(image_path: str, canvas: int = 512) -> dict:

@@ -10,7 +10,8 @@ names (reference ``train_2d.py:99``: ``export_resnet18_encoder``), and
 (``--encoder_weights``).  ``from_jax_variables`` carries the JAX package's
 ``params``/``batch_stats`` trees (numpy leaves) into these schemas; the
 mapping tables are copies of ``pcrlv23d_mapping``, ``resnet18_encoder_mapping``
-and ``pcrlv2_2d_mapping``.
+and ``pcrlv2_2d_mapping``, and ``chest_classifier_mapping`` covers the finetune
+classifier (the encoder's table plus its ``fc``).
 
 The train state (``save_train_state``, the role of the JAX package's Orbax
 state) is one ``torch.save`` file, ``<state dir>/state.pt``: parameters and
@@ -130,6 +131,16 @@ def resnet18_encoder_mapping():
     return entries
 
 
+def chest_classifier_mapping():
+    """(torch_key, flax_path, kind) for every tensor of the finetune
+    ``ChestClassifier``: the encoder's under ``encoder`` and the linear
+    ``fc`` head."""
+    entries = [("encoder." + tkey, ("encoder",) + fpath, kind)
+               for tkey, fpath, kind in resnet18_encoder_mapping()]
+    return entries + [("fc.weight", ("fc", "kernel"), "linear"),
+                      ("fc.bias", ("fc", "bias"), "id")]
+
+
 def _conv2drelu_entries(tprefix: str, fpath: Tuple[str, ...]):
     """smp ``Conv2dReLU`` = Sequential(conv without bias, BN, ReLU)."""
     return ([(f"{tprefix}.0.weight", fpath + ("conv", "kernel"), "conv2d")]
@@ -171,7 +182,8 @@ def from_jax_variables(variables: Mapping[str, Any], norm: str = "bn",
     """``{'params': …, 'batch_stats': …}`` of a JAX model (numpy leaves) →
     the port's ``state_dict`` (CPU tensors), by ``mapping`` (default: the
     ``PCRLv23d`` table for ``norm`` and ``act``; ``pcrlv2_2d_mapping()`` for
-    ``PCRLv2``, ``resnet18_encoder_mapping()`` for its encoder).  BatchNorm
+    ``PCRLv2``, ``resnet18_encoder_mapping()`` for its encoder,
+    ``chest_classifier_mapping()`` for the finetune ``ChestClassifier``).  BatchNorm
     step counters have no flax analog and start at 0."""
     out: Dict[str, torch.Tensor] = {}
     for tkey, fpath, kind in mapping or pcrlv23d_mapping(norm, act):

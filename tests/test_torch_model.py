@@ -27,6 +27,8 @@ from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 from pcrlv2_tpu_torch.train import checkpoint as ckpt
 from pcrlv2_tpu_torch.train.step import TrainState, loss_fn, train_step
 
+from tests.f64_reference import traced_with_convs_as_products
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -232,13 +234,15 @@ def f64_loss_and_grad():
     """``make_loss_fn(PCRLv23d in float64, dim=3)``'s value and gradient
     with the key an argument, jitted once (x64 enabled) for the two
     float64 tests below: its lowering and compile take about as long as
-    its run, so one program serves both."""
+    its run, so one program serves both.  Its convs are traced as
+    products (``tests/f64_reference.py``: XLA's float64 CPU conv is a
+    plain loop nest, ten times the run)."""
     f64 = JaxPolicy(param_dtype=jnp.float64, compute_dtype=jnp.float64,
                     output_dtype=jnp.float64)
     with jax.enable_x64(True):
         jloss = make_loss_fn(JaxPCRLv23d(policy=f64), dim=3)
-        return jax.jit(jax.value_and_grad(
-            lambda p, s, v, key: jloss(p, s, v, key, 0), has_aux=True))
+        return traced_with_convs_as_products(jax.jit(jax.value_and_grad(
+            lambda p, s, v, key: jloss(p, s, v, key, 0), has_aux=True)))
 
 
 def test_gradient_matches_jax_float64(jax_setup, f64_loss_and_grad):

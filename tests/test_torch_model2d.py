@@ -10,7 +10,8 @@ float64 by ~2e-5 of the stem's output already (XLA's CPU reductions), 15×
 the port's f32 error there, so the f32 JAX model cannot hold the port to
 f32 rounding.  The JAX forwards run as one jitted program and the loss and
 gradient as another, each once per file (module fixtures), since each shape
-compiles anew.  Sizes: b = 4, 64² global views, 2 local views of 32² (sides
+compiles anew, their convs traced as products (``tests/f64_reference.py``:
+XLA's float64 CPU conv is a plain loop nest).  Sizes: b = 4, 64² global views, 2 local views of 32² (sides
 a multiple of 32, the encoder's stride).
 """
 
@@ -43,6 +44,8 @@ from pcrlv2_tpu_torch.ops.resize import upsample_nearest2x_2d
 from pcrlv2_tpu_torch.train import checkpoint as ckpt
 from pcrlv2_tpu_torch.train.step import (LOSS_GUARD, TrainState, draw_levels, loss_fn,
                                          pipelined_train_step, train_step)
+
+from tests.f64_reference import convs_as_products
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -128,7 +131,7 @@ def jax_forwards(weights):
     0.25), one jitted program."""
     xg, xl = _image(3, B, SIZE), _image(4, B * N_VIEWS, LOCAL)
     eval_stats = jax.tree.map(lambda v: v + 0.25, weights["batch_stats"])
-    with jax.enable_x64(True):
+    with jax.enable_x64(True), convs_as_products():
         model = JaxPCRLv2(policy=F64)
 
         @jax.jit
@@ -215,7 +218,7 @@ def f64_run(weights):
     the gradient in the port's schema."""
     views = _views(7)
     key = jax.random.key(21)
-    with jax.enable_x64(True):
+    with jax.enable_x64(True), convs_as_products():
         levels = jax_levels(key, N_VIEWS)
         jloss = make_loss_fn(JaxPCRLv2(policy=F64), dim=2)
         (value, (_, metrics)), grads = jax.jit(jax.value_and_grad(

@@ -38,7 +38,7 @@ def test_package_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(pcrlv2_tpu_torch.__path__,
                                                   "pcrlv2_tpu_torch.")]
     for name in ("ops.conv3d_kernel", "native", "utils.chiplock", "tools.bench",
-                 "models.resnet", "models.unet2d", "data.augment2d"):
+                 "models.resnet", "models.unet2d", "data.augment2d", "train.finetune"):
         assert f"pcrlv2_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -64,15 +64,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--synthetic", "--d", "2", "--phase", "finetune"], "pcrlv2_tpu/train/finetune.py"),
-    (["--synthetic", "--phase", "finetune"], "pcrlv2_tpu/train/finetune.py"),
+    (["--synthetic", "--phase", "finetune", "--multihost"], "does not support --multihost"),
+    (["--synthetic", "--phase", "finetune", "--spatial", "2"], "does not support --spatial"),
     ([], "--data is required"),
     (["--synthetic", "--spatial", "2"], "pcrlv2_tpu/parallel/spatial_train.py"),
     (["--synthetic", "--multihost"], "pcrlv2_tpu/core/mesh.py"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     """Paths not ported yet stop naming the JAX module they wait for;
-    without a data source the CLI says what it needs."""
+    without a data source the CLI says what it needs; finetuning refuses
+    ``--multihost`` and ``--spatial`` as the JAX CLI does."""
     with pytest.raises(SystemExit, match=item):
         cli.main(argv + ["--device", "cpu"])
 

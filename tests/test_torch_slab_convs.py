@@ -32,6 +32,8 @@ from pcrlv2_tpu_torch.ops import conv3d_kernel as ck
 from pcrlv2_tpu_torch.ops import conv3d_packed as cp
 from pcrlv2_tpu_torch.train import checkpoint as ckpt
 
+from tests.f64_reference import convs_as_products
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -384,7 +386,7 @@ def test_model_with_in_channels_matches_jax(in_channels):
                                             train=True, mutable=["batch_stats"])
         return jnp.mean(out ** 2) + sum(jnp.mean(m ** 2) for m in masks)
 
-    with jax.enable_x64(True):
+    with jax.enable_x64(True), convs_as_products():  # tests/f64_reference.py
         to64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)  # noqa: E731
         gparams, gx = jax.jit(jax.grad(jloss, argnums=(0, 2)))(
             to64(variables["params"]), to64(variables["batch_stats"]),

@@ -1,7 +1,8 @@
 """The port's trainer on the disk path: evaluation held against the JAX
-loss on the same weights, views and levels; evaluation leaves the train
-state as it was; resume continues an interrupted run bit for bit; and the
-CLI trains, evaluates, saves and resumes from a processed tree (CPU, f32).
+loss on the same weights, views and levels; its views and draws; evaluation
+leaves the train state as it was; resume continues an interrupted run bit
+for bit; and the CLI trains, evaluates, saves and resumes from a processed
+tree (CPU, f32).
 """
 
 import json
@@ -27,8 +28,8 @@ from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
 from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 from pcrlv2_tpu_torch.train import checkpoint as ckpt
 from pcrlv2_tpu_torch.train.step import eval_step
-from pcrlv2_tpu_torch.train.trainer import (TrainConfig, Trainer, eval_levels,
-                                            raw_batch_to_views, run_training)
+from pcrlv2_tpu_torch.train.trainer import (TrainConfig, Trainer, eval_aug_seed, eval_levels,
+                                            level_seed, raw_batch_to_views, run_training)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,6 +79,33 @@ def test_eval_metrics_match_the_jax_loss(tmp_path):
     for k in ("loss", "mg_loss", "cos_loss", "local_loss", "mask_loss"):
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4,
                                    atol=1e-6, err_msg=k)
+
+
+def test_eval_views_equal_the_jax_trainers():
+    """``raw_batch_to_views`` on an f16 batch (``--h2d_dtype f16``) equals
+    the JAX trainer's ``raw_batch_to_views(batch, 3)`` bit for bit: x1 = gt
+    = crop 0, x2 = gt2 = crop 1, the locals, channels last, in f32."""
+    raw = {k: v.astype(np.float16) for k, v in _raw(8, b=3).items()}
+    got = raw_batch_to_views({k: torch.from_numpy(v) for k, v in raw.items()})
+    want = JaxTrainer.raw_batch_to_views(raw, 3)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].dtype == torch.float32 and got[k].shape == v.shape, k
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+
+
+def test_eval_draws_depend_on_seed_and_batch_only():
+    """Evaluation is the same on every pass: ``eval_levels`` (1 + 2·V levels
+    in [0, n_levels)) and ``eval_aug_seed`` are functions of (seed, batch
+    index); other batches and seeds draw otherwise, and the three streams
+    (training levels, eval levels, eval augmentation) are apart."""
+    draws = [eval_levels(4, i, 6, 5) for i in range(8)]
+    assert draws == [eval_levels(4, i, 6, 5) for i in range(8)]
+    assert all(len(d) == 13 and all(0 <= v < 5 for v in d) for d in draws)
+    assert len({tuple(d) for d in draws}) > 1 and eval_levels(5, 0, 6, 5) != draws[0]
+    seeds = {eval_aug_seed(4, i) for i in range(8)}
+    assert len(seeds) == 8 and eval_aug_seed(4, 0) == eval_aug_seed(4, 0)
+    assert level_seed(4) not in seeds | {4} and level_seed(4) != level_seed(5)
 
 
 def test_evaluate_leaves_the_state_untouched_and_repeats(tmp_path):
