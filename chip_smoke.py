@@ -157,7 +157,23 @@ Phases, any failure exits non-zero without the final line:
    graph replays against the eager loop, two epochs from one state and
    seed, bit for bit, in 3D and 2D (the dropout masks and generator state
    among the leaves), in f32 and ``--amp``; one 3D and one 2D finetune step
-   under ``torch.cuda.set_sync_debug_mode("error")``.
+   under ``torch.cuda.set_sync_debug_mode("error")``;
+14. data parallelism (``core/mesh.py``; one card, so NCCL runs at world 1):
+   (a) the CLI with ``run3d.sh``'s ``--gpus 0,1,2,3 --b 32 --amp``
+   (synthetic, ``DP_STEPS`` steps), which must say it uses the one device
+   there is and run in this process, launches exact; (b) ``--multihost``
+   at world 1 on NCCL (the script sets torchrun's variables), the 3D
+   pretask with ``--amp``, and the 3D finetune with ``--amp`` in a group
+   joined from the same variables (the CLI refuses ``--multihost`` with
+   ``--phase finetune``, as the JAX CLI does), on the graphs, each against
+   the same CLI run without a group from the same seed: every parameter,
+   BN statistic, momentum, the step counter, the generators and every
+   logged loss bit-identical, launches exact, ``SYNC_STEPS`` replays under
+   the sync-debug mode, and the step time, the captures' time and peak
+   memory of both runs (the gap is the collectives' cost at world 1);
+   (c) where the machine has 2 GPUs or more, a 2-rank NCCL epoch through
+   the CLI's own spawning (``--gpus 0,1``); with one, a line says
+   ``skipped: 1 device``.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -2168,6 +2184,237 @@ def finetune_phase(profiles: dict) -> dict:
     return ft
 
 
+DP_STEPS = 3  # steps of phase 14's run3d.sh-flags run (b = 32)
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """torchrun's variables for a group of one on this host, removed after."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    with contextlib.ExitStack() as stack:
+        for k, v in env.items():
+            stack.enter_context(env_var(k, v))
+        yield
+
+
+def cli_output(argv) -> tuple:
+    """``main(argv)`` in this process → (its return value, what it printed),
+    the output also passed on."""
+    import io
+
+    from pcrlv2_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cli_main(argv)
+    sys.stdout.write(buf.getvalue()[-2000:])
+    return out, buf.getvalue()
+
+
+def run3d_flags_run(tmp: str) -> dict:
+    """Phase 14 (a): ``run3d.sh``'s flags, synthetic, ``DP_STEPS`` steps."""
+    import torch
+
+    from pcrlv2_tpu_torch.ops import _build
+
+    argv = ["--synthetic", "--b", "32", "--epochs", "0", "--lr", "1e-3", "--n", "luna",
+            "--d", "3", "--gpus", "0,1,2,3", "--ratio", "1.0", "--amp", "--steps_per_epoch",
+            str(DP_STEPS), "--log_every", "1", "--seed", "0", "--output", tmp]
+    n = torch.cuda.device_count()
+    _build.launches.clear()
+    trainer, text = cli_output(argv)
+    said = f"==> data parallel: {min(n, 4)} device(s) of the 4 --gpus lists"
+    if said not in text:
+        raise AssertionError(f"run3d.sh's flags: the CLI did not say '{said}'")
+    if n > 1:
+        return {"devices": min(n, 4), "spawned": True}
+    counts = launched("pallas", DP_STEPS, 0, "run3d.sh's flags")
+    _, rows = step_rows(os.path.join(tmp, "metrics.jsonl"))
+    del trainer
+    gc.collect()
+    return {"devices": 1, "counts": counts, "losses": [r["loss"] for r in rows],
+            "step_s": step_times(rows)}
+
+
+def group_pair(argv, finetune: bool, replay_batches: list) -> dict:
+    """Phase 14 (b): the CLI on ``argv`` without a group, then with
+    ``--multihost`` at world 1 on NCCL (the finetune phase, which the CLI
+    refuses with ``--multihost``, through its ``run`` in a group joined
+    from the same variables), on the graphs (the counters set to 0
+    before each and checked after); every leaf of the two trainers' states
+    and every logged loss bit-identical; then ``SYNC_STEPS`` replays of the
+    group's trainer under the sync-debug mode; step times (``BT``, or a
+    finetune epoch's synchronised steps), captures and peak memory of
+    both.  The group is destroyed after its trainer is freed."""
+    import torch
+    import torch.distributed as dist
+
+    from pcrlv2_tpu_torch.ops import _build
+
+    from pcrlv2_tpu_torch.cli.main import run
+    from pcrlv2_tpu_torch.core import mesh
+
+    out, runs = argv[argv.index("--output") + 1], {}
+    for name in ("plain", "group"):
+        run_argv = [a if a != out else os.path.join(out, name) for a in argv]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        if name == "plain":
+            trainer, _ = cli_output(run_argv)
+        elif finetune:  # the CLI refuses --multihost with --phase finetune, as JAX's does
+            with torchrun_env():
+                device = torch.device("cuda", 0)
+                trainer = run(run_argv, device, mesh.init_distributed(device))
+        else:
+            with torchrun_env():
+                trainer, _ = cli_output(run_argv + ["--multihost"])
+        torch.cuda.synchronize()
+        label = f"{'finetune' if finetune else 'pretask'} {name}"
+        counts = (finetune_launches(3, STEPS, 0, label) if finetune
+                  else launched("pallas", STEPS, 0, label))
+        if (trainer.state.group is not None) != (name == "group"):
+            raise AssertionError(f"{label}: group {trainer.state.group}")
+        rows = [json.loads(x) for x in open(os.path.join(out, name, "metrics.jsonl"))]
+        r = runs[name] = {"counts": counts, "rows": rows,
+                          "leaves": {k: v.detach().clone() for k, v in
+                                     state_leaves(trainer, []).items()},
+                          "capture_s": list(trainer.captured.capture_s.values()),
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if finetune:
+            r["step_s"] = timed_finetune_steps(trainer, replay_batches)
+        else:
+            r["step_s"] = step_times([x for x in rows if "iter" in x])
+        if name == "group":
+            if finetune:
+                r["host_s_sync"] = sync_free_replays(lambda b: trainer.step(b), replay_batches)
+            else:
+                r["host_s_sync"] = replay_loop(trainer, replay_batches, SYNC_STEPS)
+            if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+                raise AssertionError(f"{label}: {dist.get_backend()} at world "
+                                     f"{dist.get_world_size()}")
+        trainer.logger.close()
+        del trainer
+        gc.collect()
+        torch.cuda.synchronize()
+        if name == "group":
+            dist.destroy_process_group()
+    diffs = differences(runs["plain"]["leaves"], runs["group"]["leaves"])
+    losses = [[{k: v for k, v in x.items() if k not in ("ts", "BT", "DT", "epoch_time",
+                                                        "batch_time", "data_time")}
+               for x in runs[n]["rows"]] for n in ("plain", "group")]
+    if diffs or losses[0] != losses[1]:
+        raise AssertionError(f"--multihost at world 1 differs from the run without a group: "
+                             f"{len(diffs)} leaves ({diffs[:8]}), losses equal: "
+                             f"{losses[0] == losses[1]}")
+    n_leaves = len(runs["group"]["leaves"])
+    for r in runs.values():
+        r["step_s_median"] = statistics.median(r["step_s"][WARMUP:])
+        del r["leaves"], r["rows"]
+    runs["leaves"] = n_leaves
+    return runs
+
+
+def timed_finetune_steps(trainer, batches: list) -> list:
+    """Each of ``STEPS`` finetune steps on device-resident ``batches``, the
+    device synchronised after each: seconds a step."""
+    import torch
+
+    out = []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        trainer.step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def sync_free_replays(step, batches: list) -> list:
+    """``SYNC_STEPS`` calls of ``step`` under the sync-debug mode: host s each."""
+    import torch
+
+    torch.cuda.synchronize()
+    host = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(SYNC_STEPS):
+            t0 = time.perf_counter()
+            step(batches[i % len(batches)])
+            host.append(time.perf_counter() - t0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return host
+
+
+def two_rank_epoch(tmp: str) -> dict:
+    """Phase 14 (c): ``--gpus 0,1``: the CLI spawns 2 NCCL ranks, one epoch
+    of ``STEPS`` steps; both ranks' metrics files, the same losses."""
+    from pcrlv2_tpu_torch.cli.main import main as cli_main
+
+    t0 = time.perf_counter()
+    if cli_main(cli_argv(True, tmp, STEPS) + ["--gpus", "0,1"]) is not None:
+        raise AssertionError("--gpus 0,1 on 2 GPUs ran in this process")
+    rows = [step_rows(os.path.join(tmp, f))[1] for f in ("metrics.jsonl", "metrics.rank1.jsonl")]
+    losses = [[r["loss"] for r in rs] for rs in rows]
+    if len(losses[0]) != STEPS or losses[0] != losses[1]:
+        raise AssertionError(f"2 ranks: losses {losses}")
+    return {"wall_s": time.perf_counter() - t0, "losses": losses[0],
+            "step_s": step_times(rows[0])}
+
+
+def dp_phase() -> dict:
+    """Phase 14 (the module docstring's item 14)."""
+    import torch
+
+    print("[14] data parallelism (core/mesh.py)", flush=True)
+    t14 = time.perf_counter()
+    dp = {}
+    with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+        dp["run3d_flags"] = a = run3d_flags_run(tmp)
+    print(f"[14] (a) run3d.sh's --gpus 0,1,2,3 --b 32 --amp: {a['devices']} device(s)"
+          + ("" if a.get("spawned") else
+             f", in this process; launches {a['counts']}, step s "
+             f"{[round(x, 4) for x in a['step_s']]}, losses "
+             f"{[round(x, 5) for x in a['losses']]}"), flush=True)
+    with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+        dp["pretask"] = group_pair(cli_argv(True, tmp, STEPS), False,
+                                   graph_batches(seed=40)[0])
+        dp["finetune"] = group_pair(finetune_argv(3, True, tmp, STEPS), True,
+                                    finetune_batches(3, seed=50)[0])
+    for name in ("pretask", "finetune"):
+        r = dp[name]
+        print(f"[14] (b) 3D {name} --amp --multihost at world 1 on NCCL: all {r['leaves']} "
+              f"leaves and the losses bit-identical to the run without a group; launches "
+              f"{ {k: v for k, v in r['group']['counts'].items() if v} }; step s median "
+              f"{r['group']['step_s_median']:.4f} (without a group "
+              f"{r['plain']['step_s_median']:.4f}); captures "
+              f"{[round(c, 3) for c in r['group']['capture_s']]} s (without "
+              f"{[round(c, 3) for c in r['plain']['capture_s']]}); peak "
+              f"{r['group']['peak_mem_gib']:.2f} GiB (without {r['plain']['peak_mem_gib']:.2f}); "
+              f"{SYNC_STEPS} replays under set_sync_debug_mode('error'), host s "
+              f"{[round(x, 5) for x in r['group']['host_s_sync']]}", flush=True)
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+            dp["two_ranks"] = c = two_rank_epoch(tmp)
+        print(f"[14] (c) 2 NCCL ranks (--gpus 0,1): {STEPS} steps, losses equal on both "
+              f"ranks {[round(x, 5) for x in c['losses']]}, step s "
+              f"{[round(x, 4) for x in c['step_s']]}", flush=True)
+    else:
+        dp["two_ranks"] = "skipped: 1 device"
+        print("[14] (c) 2-rank NCCL epoch skipped: 1 device", flush=True)
+    dp["phase_s"] = time.perf_counter() - t14
+    print(f"[14] phase 14 took {dp['phase_s']:.1f} s", flush=True)
+    return dp
+
+
 def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
     """One kernel of the kernels line, from its summary ``s``.  ``bf16_ms``,
     ``bf16_bound_ms`` and ``bf16_library_ms`` are its bf16 sums; the tools'
@@ -2470,6 +2717,7 @@ def main() -> int:
         print(f"[12] phase 12 took {chest['phase_s']:.1f} s", flush=True)
 
         ft = finetune_phase(profiles)
+        dp = dp_phase()
 
         kernels = [kernel_entry(name, src, replaces, runs[LAUNCHED_IN[name]]["counts"][name],
                                 summary[name]) for name, (src, replaces) in KERNELS.items()]
@@ -2484,7 +2732,7 @@ def main() -> int:
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
                        "tool_odd_rows": tool_odd_rows, "tool_summary": tool_summary,
                        "graph": graph, "surface": surface, "chest": chest,
-                       "finetune": ft}, fh,
+                       "finetune": ft, "data_parallel": dp}, fh,
                       indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1
         traceback.print_exc()

@@ -47,13 +47,19 @@ import argparse
 import hashlib
 import itertools
 import json
+import multiprocessing
 import os
+import socket
+import sys
 import time
 from functools import partial
+from multiprocessing.connection import wait
 
 import numpy as np
+import torch
 
 from pcrlv2_tpu_torch import native
+from pcrlv2_tpu_torch.core import mesh
 from pcrlv2_tpu_torch.core.device import resolve_device
 from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
 from pcrlv2_tpu_torch.data.augment2d import make_chest_aug_fn
@@ -87,7 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n", default="luna", help="dataset name: luna | chest")
     parser.add_argument("--d", default=3, type=int, help="2d or 3d pipeline")
     parser.add_argument("--workers", default=4, type=int, help="host loader threads")
-    parser.add_argument("--gpus", default="0", help="device list (one device)")
+    parser.add_argument("--gpus", default="0",
+                        help="device list, e.g. 0,1,2,3: one process per device used, "
+                             "min(listed, available) of them (rank r on the r-th listed "
+                             "GPU; with --device cpu, gloo processes); --b is the global "
+                             "batch")
     parser.add_argument("--ratio", default=1.0, type=float,
                         help="fraction of the train UIDs used for pretraining")
     parser.add_argument("--momentum", default=0.9, type=float)
@@ -165,12 +175,29 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--spatial", default=1, type=int,
                         help="(not ported yet; --phase finetune refuses it)")
     parser.add_argument("--multihost", action="store_true", default=False,
-                        help="(not ported yet)")
+                        help="join the process group torchrun's environment describes "
+                             "(torchrun --nproc_per_node N ... --multihost), one process "
+                             "per device on cuda:LOCAL_RANK; --b is the global batch, each "
+                             "process loads its interleaved dataset slice and b/world "
+                             "samples; a group even at world 1")
     return parser
 
 
 def _not_ported(what: str, module: str):
     raise SystemExit(f"{what} is not ported yet (it waits for {module})")
+
+
+def shard_for_process(args, *lists):
+    """This rank's interleaved slice of each list and a copy of ``args`` with
+    its ``b / world`` batch (the JAX CLI's ``_shard_for_process``; ``--b`` is
+    the global batch).  Every rank's slice is trimmed to the common
+    ``len(lst) // world``: a rank with one more sample would run a step the
+    others do not, and the collectives would wait for it forever."""
+    rank, world = args.rank, args.world
+    if world == 1:
+        return args, lists
+    local = argparse.Namespace(**{**vars(args), "b": args.b // world})
+    return local, tuple(lst[rank::world][: len(lst) // world] for lst in lists)
 
 
 class SyntheticLoader:
@@ -231,6 +258,7 @@ def luna_pretask_loaders(args) -> dict:
         args.data, train_fold=range(7), valid_fold=range(7, 10),
         test_fold=range(7, 10), suffix="_global_", file_list=uids)
     print(f"total train images {len(x_train)}, validation images {len(x_valid)}")
+    args, (x_train, x_valid) = shard_for_process(args, x_train, x_valid)
     h2d = args.h2d_dtype if args.h2d_dtype != "auto" else ("f16" if args.amp else "f32")
     if h2d == "f16":
         print("==> h2d_dtype f16: raw batches are read and moved at half width "
@@ -343,6 +371,7 @@ def chest_pretask_loaders(args) -> dict:
     print(f"total train images {len(names)}")
     canvas = args.chest_canvas if args.chest_canvas > 0 else detect_chest_canvas(
         names, args.output)
+    args, (names,) = shard_for_process(args, names)
     read = chest_reader(args, canvas)
     train = HostLoader(names, args.b, read, shuffle=True, seed=args.seed,
                        num_workers=args.workers)
@@ -370,6 +399,7 @@ def luna_finetune_loaders(args) -> dict:
                                         test_fold=(), suffix="_global_", file_list=uids)
     print(f"finetune train images {len(x_train)}"
           + (f", validation images {len(x_valid)}" if eval_folds else ""))
+    args, (x_train, x_valid) = shard_for_process(args, x_train, x_valid)
     if args.mask_dir:
         if not os.path.isdir(args.mask_dir):
             raise SystemExit(f"--mask_dir not found: {args.mask_dir}")
@@ -404,8 +434,9 @@ def chest_finetune_loaders(args) -> dict:
     keep = max(1, int(len(names) * args.ratio))
     names, labels = names[:keep], labels[:keep]
     print(f"finetune train images {len(names)} (ratio {args.ratio})")
+    local, (names, labels) = shard_for_process(args, names, labels)
     read = chest_reader(args, canvas=224)
-    train = HostLoader(names, args.b, _labelled(read, names, labels), shuffle=True,
+    train = HostLoader(names, local.b, _labelled(read, names, labels), shuffle=True,
                        seed=args.seed, num_workers=args.workers)
     evaluate = None
     if args.eval_every > 0:
@@ -413,7 +444,8 @@ def chest_finetune_loaders(args) -> dict:
         if os.path.exists(vtxt):
             vnames, vlabels = get_chest_list(vtxt, args.data)
             print(f"finetune validation images {len(vnames)}")
-            evaluate = HostLoader(vnames, args.b, _labelled(read, vnames, vlabels),
+            _, (vnames, vlabels) = shard_for_process(args, vnames, vlabels)
+            evaluate = HostLoader(vnames, local.b, _labelled(read, vnames, vlabels),
                                   shuffle=False, seed=args.seed, num_workers=args.workers,
                                   drop_last=False)
         else:
@@ -422,10 +454,8 @@ def chest_finetune_loaders(args) -> dict:
     return {"train": train, "eval": evaluate}
 
 
-def configure(argv=None):
-    """Parse ``argv``, refuse what the port does not run, and build what
-    both phases share: ``(args, device, policy, cfg)``."""
-    args = build_parser().parse_args(argv)
+def refuse(args) -> None:
+    """Stop on what the port does not run, before any process starts."""
     if args.d not in (2, 3):
         raise SystemExit(f"unsupported --d {args.d}")
     if args.model != "pcrlv2" or args.phase not in ("pretask", "finetune"):
@@ -438,8 +468,6 @@ def configure(argv=None):
         raise SystemExit("--phase finetune does not support --spatial")
     if args.spatial > 1:
         _not_ported("--spatial", "pcrlv2_tpu/parallel/spatial_train.py")
-    if args.multihost or len([g for g in str(args.gpus).split(",") if g]) > 1:
-        _not_ported("training on more than one device", "pcrlv2_tpu/core/mesh.py")
     if args.encoder_weights and args.d != 2:
         raise SystemExit("--encoder_weights applies to the 2D pipeline (--d 2)")
     if args.encoder_weights and finetune:
@@ -455,7 +483,21 @@ def configure(argv=None):
         if args.n != {3: "luna", 2: "chest"}[args.d]:
             raise SystemExit(f"--d {args.d} --n {args.n}: the 3D pipeline reads --n luna, "
                              "the 2D one --n chest")
-    device = resolve_device(args.device)
+
+
+def configure(argv=None, device=None, group=None):
+    """Parse ``argv``, refuse what the port does not run, and build what
+    both phases share: ``(args, device, policy, cfg)``.  ``device`` (default:
+    ``--device``'s, the first GPU ``--gpus`` lists) and ``group`` (the data-
+    parallel process group; None: one rank) are the rank's; ``args`` then
+    carries ``rank`` and ``world``."""
+    args = build_parser().parse_args(argv)
+    refuse(args)
+    args.rank, args.world = mesh.rank(group), mesh.world(group)
+    if mesh.batch_not_shardable(args.b, args.world):
+        raise SystemExit(f"global batch {args.b} not divisible by {args.world} processes")
+    if device is None:
+        device = rank_device(args, 0)
     policy = DEFAULT_POLICY if args.amp else PARITY_POLICY
     cfg = TrainConfig(model=args.model, n=args.n, phase=args.phase, b=args.b,
                       epochs=args.epochs, lr=args.lr, output=args.output,
@@ -469,18 +511,20 @@ def configure(argv=None):
     return args, device, policy, cfg
 
 
-def prepare(argv=None):
+def prepare(argv=None, device=None, group=None):
     """Parse ``argv`` and build what ``main`` pretrains: ``(model, cfg,
     loaders, aug_fn, device)``, ``loaders`` = ``{"train", "eval"}`` for
     ``run_training``.  ``--d 3`` trains ``PCRLv23d`` on LUNA crops, ``--d 2``
-    ``PCRLv2`` on chest X-rays."""
-    args, device, policy, cfg = configure(argv)
+    ``PCRLv2`` on chest X-rays; ``device`` and ``group`` as ``configure``
+    takes them (the loaders read this rank's slice)."""
+    args, device, policy, cfg = configure(argv, device, group)
     if args.phase != "pretask":
         raise SystemExit("prepare builds --phase pretask; --phase finetune is "
                          "prepare_finetune's")
     if args.synthetic:
-        loaders = {"train": SyntheticLoader(args.b, args.steps_per_epoch or 4, args.seed,
-                                            dim=args.d, canvas=args.chest_canvas or 1024),
+        loaders = {"train": SyntheticLoader(args.b // args.world, args.steps_per_epoch or 4,
+                                            mesh.rank_seed(args.seed, args.rank), dim=args.d,
+                                            canvas=args.chest_canvas or 1024),
                    "eval": None}
     else:
         loaders = (luna_pretask_loaders if args.d == 3 else chest_pretask_loaders)(args)
@@ -499,21 +543,22 @@ def prepare(argv=None):
     return model, cfg, loaders, aug_fn, device
 
 
-def prepare_finetune(argv=None):
+def prepare_finetune(argv=None, device=None, group=None):
     """Parse ``argv`` (``--phase finetune``) and build what ``main``
     finetunes: ``(cfg, loaders, device, options)``, for ``run_finetune(cfg,
     loaders["train"], eval_loader=loaders["eval"], device=device,
     **options)``; ``options`` = dim, n_class (1 in 3D), policy, weight.
     Synthetic data: 3D LUNA crops, or 2D images on a 224² canvas with
     ``--n_class`` labels; a second loader is the eval split under
-    ``--eval_every``."""
-    args, device, policy, cfg = configure(argv)
+    ``--eval_every``; ``device`` and ``group`` as ``configure`` takes them."""
+    args, device, policy, cfg = configure(argv, device, group)
     if args.phase != "finetune":
         raise SystemExit("prepare_finetune builds --phase finetune")
     n_class = args.n_class if args.d == 2 else 1
     if args.synthetic:
         def loader():
-            return SyntheticLoader(args.b, args.steps_per_epoch or 4, args.seed, dim=args.d,
+            return SyntheticLoader(args.b // args.world, args.steps_per_epoch or 4,
+                                   mesh.rank_seed(args.seed, args.rank), dim=args.d,
                                    canvas=args.chest_canvas or 224,
                                    n_class=n_class if args.d == 2 else 0)
         loaders = {"train": loader(), "eval": loader() if args.eval_every > 0 else None}
@@ -525,19 +570,123 @@ def prepare_finetune(argv=None):
                                   "weight": args.weight}
 
 
-def main(argv=None):
-    """Train as ``argv`` says; returns the ``Trainer`` (pretask) or the
-    ``FinetuneTrainer``."""
+def gpu_ids(args) -> list:
+    """The device indices ``--gpus`` lists (``0`` when it lists none)."""
+    return [int(g) for g in str(args.gpus).split(",") if g.strip()] or [0]
+
+
+def devices_used(args) -> int:
+    """How many devices the run uses, as the JAX CLI counts them:
+    min(``--gpus``' length, the CUDA devices there are); with ``--device
+    cpu`` every listed one, as a gloo process."""
+    listed = len(gpu_ids(args))
+    if torch.device(args.device).type != "cuda":
+        return listed
+    return max(1, min(listed, torch.cuda.device_count()))
+
+
+def rank_device(args, rank: int) -> torch.device:
+    """Rank ``rank``'s device: the ``rank``-th GPU ``--gpus`` lists (on
+    ``--device cuda``), else ``--device`` as given."""
+    if args.device != "cuda":
+        return resolve_device(args.device)
+    resolve_device("cuda")  # raises without a CUDA device
+    index = gpu_ids(args)[rank]
+    if index >= torch.cuda.device_count():
+        raise SystemExit(f"--gpus lists device {index}; this machine has "
+                         f"{torch.cuda.device_count()} CUDA devices")
+    return torch.device("cuda", index)
+
+
+def run(argv, device: torch.device, group=None):
+    """One rank's run of ``argv`` on ``device`` in ``group``: the
+    ``Trainer`` (pretask) or the ``FinetuneTrainer``."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     if build_parser().parse_args(argv).phase == "finetune":
-        cfg, loaders, device, options = prepare_finetune(argv)
+        cfg, loaders, device, options = prepare_finetune(argv, device, group)
         print(f"finetuning pcrlv2 {options['dim']}d (n_class={options['n_class']}) "
               f"on {device}")
         return run_finetune(cfg, loaders["train"], eval_loader=loaders["eval"],
-                            device=device, **options)
-    model, cfg, loaders, aug_fn, device = prepare(argv)
+                            device=device, group=group, **options)
+    model, cfg, loaders, aug_fn, device = prepare(argv, device, group)
     print(f"training pcrlv2 {model.dim}d on {device}")
     return run_training(model, cfg, loaders["train"], aug_fn, device,
-                        eval_loader=loaders["eval"])
+                        eval_loader=loaders["eval"], group=group)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_main(argv, rank: int, world: int, port: int) -> None:
+    """A process ``spawn_ranks`` starts: rank ``rank`` of ``world``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    args = build_parser().parse_args(argv)
+    device = rank_device(args, rank)
+    group = mesh.init_distributed(device)
+    try:
+        run(argv, device, group)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(argv, world: int) -> None:
+    """Run ``argv`` as ``world`` processes (spawned, one per device) in one
+    process group on this host, and wait for them; if one fails, stop the
+    others and raise ``SystemExit``."""
+    port = _free_port()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(argv, r, world, port), name=f"rank{r}")
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    failed = None
+    try:
+        running = list(procs)
+        while running and failed is None:
+            wait([p.sentinel for p in running])
+            for p in [p for p in running if not p.is_alive()]:
+                running.remove(p)
+                if p.exitcode != 0 and failed is None:
+                    failed = p
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    if failed is not None:
+        raise SystemExit(f"{failed.name} of {world} failed (exit code {failed.exitcode})")
+
+
+def main(argv=None):
+    """Train as ``argv`` says; returns the ``Trainer`` (pretask) or the
+    ``FinetuneTrainer`` of this process.  ``--multihost`` joins torchrun's
+    process group; else, when ``--gpus`` lists more than one device there
+    is, one process per device is spawned (None is returned)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    refuse(args)
+    if args.multihost:
+        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+                  if args.device == "cuda" else resolve_device(args.device))
+        group = mesh.init_distributed(device)
+        print(f"==> multihost: process {mesh.rank(group)} of {mesh.world(group)} on {device}")
+        return run(argv, device, group)
+    world = devices_used(args)
+    print(f"==> data parallel: {world} device(s) of the {len(gpu_ids(args))} --gpus lists")
+    if world == 1:
+        return run(argv, rank_device(args, 0))
+    if args.b % world:
+        raise SystemExit(f"batch {args.b} not divisible by {world} data-parallel devices")
+    if "RANK" in os.environ:
+        raise SystemExit("a launcher's environment is set (RANK): pass --multihost to join "
+                         "its process group")
+    spawn_ranks(argv, world)
+    return None
 
 
 if __name__ == "__main__":

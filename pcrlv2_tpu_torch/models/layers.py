@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn as nn
 
+from pcrlv2_tpu_torch.core import mesh
 from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from pcrlv2_tpu_torch.ops.convolution import conv2d, conv3d, conv_transpose3d
 
@@ -62,7 +63,9 @@ def _normalize(x, mean, var, weight, bias, eps, dtype):
 
 class BatchNorm(nn.Module):
     """Batch norm over every axis but the last (flax ``nn.BatchNorm``
-    semantics, momentum 0.9 on the running average, ε 1e-5)."""
+    semantics, momentum 0.9 on the running average, ε 1e-5); in training
+    over the rows of every rank of ``stat_group`` (flax's ``axis_name``),
+    so the running statistics stay the same on every rank."""
 
     def __init__(self, channels: int, policy: Policy = DEFAULT_POLICY,
                  momentum: float = 0.9, eps: float = 1e-5):
@@ -76,13 +79,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
+        #: the process group whose ranks' rows make the batch (None: this
+        #: rank's rows alone; ``core.mesh.set_stat_group``)
+        self.stat_group = None
 
     def forward(self, x):
         if self.training:
             axes = tuple(range(x.ndim - 1))
             xf = x.float()
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            c = x.shape[-1]
+            # the per-channel sums and the count in one collective over
+            # ``stat_group`` (the global batch's statistics; the identity
+            # without a group), differentiable like flax's psum
+            count = torch.full((1,), float(x.numel() // c), device=x.device)
+            stats = mesh.all_reduce_grad(torch.cat([xf.sum(axes), (xf * xf).sum(axes), count]),
+                                         self.stat_group)
+            mean = stats[:c] / stats[2 * c:]
+            var = torch.clamp(stats[c:2 * c] / stats[2 * c:] - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

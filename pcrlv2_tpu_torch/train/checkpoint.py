@@ -255,36 +255,62 @@ def import_resnet18_encoder(path: str, encoder: torch.nn.Module) -> Dict[str, An
 STATE_FILE = "state.pt"
 
 
+def rank_state_file(rank: int) -> str:
+    """The file of rank ``rank``'s own generators beside ``STATE_FILE``."""
+    return f"state.rank{rank}.pt"
+
+
+def _write(payload: dict, path: str) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
 def save_train_state(state_dir: str, epoch: int, state,
-                     generators: Mapping[str, torch.Generator]) -> str:
+                     generators: Mapping[str, torch.Generator], rank: int = 0) -> str:
     """Write ``state`` (a ``train.step.TrainState``) after ``epoch`` and the
     generators' states to ``<state_dir>/state.pt`` (tmp + rename, so a crash
-    never leaves a torn file); returns its path."""
+    never leaves a torn file); returns its path.  Under data parallelism
+    the state is the same on every rank and rank 0 writes it; rank ``r`` > 0
+    writes only its generators, to ``state.rank{r}.pt``."""
     os.makedirs(state_dir, exist_ok=True)
+    gens = {k: g.get_state() for k, g in generators.items()}
+    if rank:
+        path = os.path.join(state_dir, rank_state_file(rank))
+        _write({"epoch": int(epoch), "generators": gens}, path)
+        return path
     path = os.path.join(state_dir, STATE_FILE)
-    payload = {
+    _write({
         "epoch": int(epoch), "step": int(state.step),
         "model": {k: v.detach().cpu().clone()
                   for k, v in state.model.state_dict().items()},
         "momentum": [b.detach().cpu().clone() for b in state.optimizer.buffers],
-        "generators": {k: g.get_state() for k, g in generators.items()},
-    }
-    tmp = f"{path}.tmp.{os.getpid()}"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+        "generators": gens,
+    }, path)
     return path
 
 
 def load_train_state(state_dir: str, state,
-                     generators: Mapping[str, torch.Generator]) -> int:
+                     generators: Mapping[str, torch.Generator], rank: int = 0) -> int:
     """Restore what ``save_train_state`` wrote into ``state`` and
     ``generators`` (in place, strict: the step counter, parameters and
-    buffers keep their tensors); returns the saved epoch.  Raises
+    buffers keep their tensors); returns the saved epoch.  Rank ``r`` > 0
+    takes its generators from ``state.rank{r}.pt``.  Raises
     ``FileNotFoundError`` when ``state_dir`` holds no state."""
     path = os.path.join(state_dir, STATE_FILE)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no train state to resume from: {path} does not exist")
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    saved_gens = payload["generators"]
+    if rank:
+        gpath = os.path.join(state_dir, rank_state_file(rank))
+        if not os.path.isfile(gpath):
+            raise FileNotFoundError(f"no generators of rank {rank} to resume from: {gpath} "
+                                    "does not exist (was the run saved at another world?)")
+        own = torch.load(gpath, map_location="cpu", weights_only=True)
+        if own["epoch"] != payload["epoch"]:
+            raise ValueError(f"{gpath} is of epoch {own['epoch']}, {path} of {payload['epoch']}")
+        saved_gens = own["generators"]
     state.model.load_state_dict(payload["model"], strict=True)
     if len(payload["momentum"]) != len(state.optimizer.buffers):
         raise ValueError(f"{path}: {len(payload['momentum'])} momentum buffers "
@@ -294,9 +320,9 @@ def load_train_state(state_dir: str, state,
             buf.copy_(saved)
         # in place: a captured CUDA graph holds this tensor's address
         state.step.fill_(int(payload["step"]))
-    if set(payload["generators"]) != set(generators):
-        raise ValueError(f"{path}: generators {sorted(payload['generators'])}, "
+    if set(saved_gens) != set(generators):
+        raise ValueError(f"{path}: generators {sorted(saved_gens)}, "
                          f"expected {sorted(generators)}")
     for k, g in generators.items():
-        g.set_state(payload["generators"][k])
+        g.set_state(saved_gens[k])
     return int(payload["epoch"])

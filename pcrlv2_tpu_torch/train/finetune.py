@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from pcrlv2_tpu_torch.core import mesh
 from pcrlv2_tpu_torch.core.device import resolve_device
 from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from pcrlv2_tpu_torch.data.pipeline import device_prefetch
@@ -47,10 +48,10 @@ from pcrlv2_tpu_torch.train.checkpoint import (export_pcrlv23d, import_pcrlv23d,
                                                import_resnet18_encoder,
                                                save_reference_checkpoint)
 from pcrlv2_tpu_torch.train.optimizer import cosine_lr
-from pcrlv2_tpu_torch.train.step import TrainState
-from pcrlv2_tpu_torch.train.trainer import GRAPH_WARMUP, CapturedStep
+from pcrlv2_tpu_torch.train.step import TrainState, global_mean
+from pcrlv2_tpu_torch.train.trainer import GRAPH_WARMUP, CapturedStep, ragged_tail
 from pcrlv2_tpu_torch.utils import chiplock
-from pcrlv2_tpu_torch.utils.meters import MetricLogger
+from pcrlv2_tpu_torch.utils.meters import MetricLogger, metrics_path
 
 #: the raw batch entries a finetune step reads (a LUNA batch's local crops
 #: are left on the host side of the graph)
@@ -125,19 +126,22 @@ def bce_with_logits(logits, labels):
     return torch.mean(torch.log1p(torch.exp(-z.abs())) + z.clamp(min=0.0) - z * y)
 
 
-def dice_loss(probs, target, eps: float = 1e-5):
-    """Soft Dice over the whole batch."""
+def dice_loss(probs, target, eps: float = 1e-5, group=None):
+    """Soft Dice over the whole batch: over every rank's rows of ``group``
+    (its three sums in one differentiable all-reduce)."""
     p, t = probs.float().reshape(-1), target.float().reshape(-1)
-    inter = torch.sum(p * t)
-    return 1.0 - (2.0 * inter + eps) / (torch.sum(p) + torch.sum(t) + eps)
+    sums = mesh.all_reduce_grad(torch.stack([torch.sum(p * t), torch.sum(p), torch.sum(t)]),
+                                group)
+    return 1.0 - (2.0 * sums[0] + eps) / (sums[1] + sums[2] + eps)
 
 
-def seg_loss(probs, target):
-    """Dice + BCE on sigmoid probabilities (clipped to [1e-6, 1 − 1e-6])."""
+def seg_loss(probs, target, group=None):
+    """Dice (over ``group``'s global batch) + BCE (this rank's rows' mean) on
+    sigmoid probabilities (clipped to [1e-6, 1 − 1e-6])."""
     p = probs.float().clamp(1e-6, 1.0 - 1e-6)
     t = target.float()
     bce = -torch.mean(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p))
-    return dice_loss(probs, target) + bce
+    return dice_loss(probs, target, group=group) + bce
 
 
 def pseudo_mask(volume, threshold: float = 0.5):
@@ -206,6 +210,7 @@ def volumes_and_masks(batch: dict):
 
 def _update(state: TrainState, loss: torch.Tensor, lr) -> None:
     loss.backward()
+    mesh.sync_gradients(state.model.parameters(), state.group)
     state.optimizer.step(lr)
     with torch.no_grad():
         state.step.add_(1)
@@ -223,7 +228,8 @@ def finetune_step_2d(state: TrainState, images, labels, lr,
     logits = model(images, dropout_gen)
     loss = bce_with_logits(logits, labels)
     _update(state, loss, lr)
-    return {"loss": loss.detach(), "acc": accuracy(logits.detach(), labels)}
+    return global_mean({"loss": loss.detach(), "acc": accuracy(logits.detach(), labels)},
+                       state.group)
 
 
 def finetune_step_3d(state: TrainState, volumes, masks, lr) -> dict:
@@ -235,9 +241,11 @@ def finetune_step_3d(state: TrainState, volumes, masks, lr) -> dict:
     for p in model.parameters():
         p.grad = None
     out, _, _ = model(volumes, local=True)
-    loss = seg_loss(out, masks)
+    loss = seg_loss(out, masks, state.group)
     _update(state, loss, lr)
-    return {"loss": loss.detach(), "dice": 1.0 - dice_loss(out.detach(), masks)}
+    # the Dice is already the global batch's
+    return {"loss": global_mean({"loss": loss.detach()}, state.group)["loss"],
+            "dice": 1.0 - dice_loss(out.detach(), masks, group=state.group)}
 
 
 @torch.no_grad()
@@ -255,15 +263,17 @@ def finetune_eval_2d(model: ChestClassifier, images, labels) -> dict:
 
 
 @torch.no_grad()
-def finetune_eval_3d(model: PCRLv23d, volumes, masks) -> dict:
-    """Eval mode, the model's state untouched: ``loss`` and ``dice``."""
+def finetune_eval_3d(model: PCRLv23d, volumes, masks, group=None) -> dict:
+    """Eval mode, the model's state untouched: ``loss`` and ``dice`` (the
+    Dice over ``group``'s global batch)."""
     was = model.training
     model.eval()
     try:
         out, _, _ = model(volumes, local=True)
     finally:
         model.train(was)
-    return {"loss": seg_loss(out, masks), "dice": 1.0 - dice_loss(out, masks)}
+    return {"loss": seg_loss(out, masks, group),
+            "dice": 1.0 - dice_loss(out, masks, group=group)}
 
 
 def _step_fn(state: TrainState, lr: torch.Tensor, dropout_gen: torch.Generator, dim: int):
@@ -283,20 +293,30 @@ class FinetuneTrainer:
     graphs unless ``cuda_graph=False``.  ``dim`` 2 trains a
     ``ChestClassifier(n_class)``, 3 a ``PCRLv23d``; ``weight`` is a ``.pt``
     to start from (2D: an encoder-only one or a bare torchvision
-    ``state_dict``, ``fc.*`` dropped; 3D: the whole model, strictly)."""
+    ``state_dict``, ``fc.*`` dropped; 3D: the whole model, strictly).
+
+    ``group``: the data-parallel process group, as ``Trainer`` takes it:
+    each rank steps on its rows of the global batch ``cfg.b`` (gradients,
+    BatchNorm statistics, the Dice and the metrics over the group), draws
+    its dropout from its own stream, seeded from (seed, rank), and rank 0
+    writes the ``.pt``."""
 
     def __init__(self, cfg, *, dim: int, n_class: int = 14, policy: Policy = DEFAULT_POLICY,
-                 weight: Optional[str] = None, device=None, cuda_graph: bool = True):
+                 weight: Optional[str] = None, device=None, cuda_graph: bool = True,
+                 group=None):
         self.device = resolve_device(device)
         self.cfg, self.dim = cfg, dim
+        self.group = group
+        self.rank, self.world = mesh.rank(group), mesh.world(group)
         if dim == 2:
             model = ChestClassifier(n_class, policy=policy, seed=cfg.seed, device=self.device)
         elif dim == 3:
             model = PCRLv23d(policy=policy, seed=cfg.seed, device=self.device)
         else:
             raise ValueError(f"unsupported dim {dim}")
-        self.state = TrainState(model, cfg.momentum, cfg.weight_decay)
-        self.dropout_gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.state = TrainState(model, cfg.momentum, cfg.weight_decay, group)
+        self.dropout_gen = torch.Generator(device=self.device).manual_seed(
+            mesh.rank_seed(cfg.seed, self.rank))
         #: the epoch's learning rate, filled once per epoch
         self.lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._eager_step = _step_fn(self.state, self.lr, self.dropout_gen, dim)
@@ -309,7 +329,7 @@ class FinetuneTrainer:
         else:
             print(SCRATCH_WARNING)
         os.makedirs(cfg.output, exist_ok=True)
-        self.logger = MetricLogger(os.path.join(cfg.output, "metrics.jsonl"))
+        self.logger = MetricLogger(metrics_path(cfg.output, self.rank))
 
     def generators(self) -> dict:
         return {"dropout": self.dropout_gen} if self.dim == 2 else {}
@@ -355,13 +375,18 @@ class FinetuneTrainer:
         mode → ``eval_*`` means weighted by batch size (the last batch may be
         short); 2D adds ``eval_auc``, the mean per-class ROC-AUC of the whole
         set's logits.  Everything is gathered on the device and read back
-        once; the state is left as it was."""
+        once; the state is left as it was.  Under more than one rank each
+        evaluates its slice: the size-weighted sums are added over the ranks
+        and the logits and labels gathered from them (a ragged tail is
+        skipped, as ``Trainer.evaluate`` skips it)."""
         model = self.state.model
         sizes, scalars, logits, labels = [], [], [], []
         names = ()
         for i, batch in enumerate(batch_iter):
             if max_batches and i >= max_batches:
                 break
+            if ragged_tail(batch, self.cfg.b, self.world):
+                continue
             if self.dim == 2:
                 x, y = images_and_labels(batch)
                 m = finetune_eval_2d(model, x, y)
@@ -369,31 +394,36 @@ class FinetuneTrainer:
                 labels.append(y)
             else:
                 x, y = volumes_and_masks(batch)
-                m = finetune_eval_3d(model, x, y)
+                m = finetune_eval_3d(model, x, y, self.group)
             names = tuple(m)
             sizes.append(x.shape[0])
             scalars.append(torch.stack(list(m.values())))
         if not sizes:
             return {}
-        parts = [torch.stack(scalars).double().flatten()]
+        # per metric its size-weighted sum, then the number of samples
+        weights = torch.tensor(sizes, dtype=torch.float64, device=self.device)
+        totals = (torch.stack(scalars).double() * weights[:, None]).sum(0)
+        parts = [mesh.all_reduce_(torch.cat([totals, weights.sum()[None]]), self.group)]
         if logits:
-            parts += [torch.cat(logits).double().flatten(), torch.cat(labels).double().flatten()]
+            parts += [mesh.all_gather_rows(torch.cat(t), self.group).double().flatten()
+                      for t in (logits, labels)]
         host = torch.cat(parts).cpu().numpy()
-        n = len(sizes) * len(names)
-        vals = host[:n].reshape(len(sizes), len(names))
-        out = {f"eval_{k}": float(np.average(vals[:, j], weights=sizes))
-               for j, k in enumerate(names)}
+        n = len(names)
+        out = {f"eval_{k}": float(host[j] / host[n]) for j, k in enumerate(names)}
         if logits:
-            scores, truth = np.split(host[n:].reshape(2, sum(sizes), -1), 2)
+            scores, truth = np.split(host[n + 1:].reshape(2, int(host[n]), -1), 2)
             auc = mean_roc_auc(scores[0], truth[0])
             if np.isfinite(auc):
                 out["eval_auc"] = auc
         return out
 
-    def save(self, epoch: int) -> str:
+    def save(self, epoch: int) -> Optional[str]:
         """``cfg.ckpt_name(epoch)`` in the reference ``{'opt', 'state_dict',
         'optimizer', 'epoch'}`` schema: 2D a torchvision-complete ResNet-18
-        (``fc`` included), 3D the whole ``PCRLv23d``."""
+        (``fc`` included), 3D the whole ``PCRLv23d``; written by rank 0
+        alone, None elsewhere."""
+        if not mesh.is_main(self.group):
+            return None
         cfg = self.cfg
         path = os.path.join(cfg.output, cfg.ckpt_name(epoch))
         model = self.state.model
@@ -408,23 +438,24 @@ class FinetuneTrainer:
 
 def run_finetune(cfg, loader, *, dim: int, n_class: int = 14,
                  policy: Policy = DEFAULT_POLICY, weight: Optional[str] = None,
-                 eval_loader=None, device=None, cuda_graph: bool = True) -> FinetuneTrainer:
+                 eval_loader=None, device=None, cuda_graph: bool = True,
+                 group=None) -> FinetuneTrainer:
     """Load → train epochs 0..``cfg.epochs`` → save, with
     an eval pass every ``cfg.eval_every`` epochs (over ``eval_loader``'s
     epoch 0, the same batches every pass) and a ``.pt`` every
     ``cfg.save_every`` epochs before the last (the JAX ``run_finetune``);
     every loader behind ``device_prefetch``.  ``cfg.resume`` is refused.  On
     a CUDA device the run holds the GPU lock and releases it however the
-    run ends."""
+    run ends; under ``group`` the first rank of each host holds it."""
     if cfg.resume:
         raise SystemExit(RESUME_REFUSED)
     device = resolve_device(device)
     lock = (chiplock.guard_warn(f"finetune d={dim} n={cfg.n}")
-            if device.type == "cuda" else None)
+            if device.type == "cuda" and mesh.local_rank(group) == 0 else None)
     trainer = None
     try:
         trainer = FinetuneTrainer(cfg, dim=dim, n_class=n_class, policy=policy, weight=weight,
-                                  device=device, cuda_graph=cuda_graph)
+                                  device=device, cuda_graph=cuda_graph, group=group)
         total = cfg.epochs
         for epoch in range(total + 1):
             t0 = time.time()
@@ -438,8 +469,12 @@ def run_finetune(cfg, loader, *, dim: int, n_class: int = 14,
                     trainer.logger.log({"epoch": epoch, **ev}, console=False)
                     print(f"eval: {ev}")
             if cfg.save_every and epoch % cfg.save_every == 0 and epoch < total:
-                print(f"==> checkpoint: {trainer.save(epoch)}")
-        print(f"==> saved finetuned checkpoint: {trainer.save(total)}")
+                path = trainer.save(epoch)
+                if path:
+                    print(f"==> checkpoint: {path}")
+        path = trainer.save(total)
+        if path:
+            print(f"==> saved finetuned checkpoint: {path}")
     finally:
         if trainer is not None:
             trainer.logger.close()

@@ -37,6 +37,15 @@ a 0-d f32 λ ≥ 0.5 and a permutation of the batch, both on the device;
 x1, x2 and gt (not the locals) become ``λ·t + (1 − λ)·t[perm]`` before the
 forwards.  ``draw_mixup`` draws them.
 
+Data parallelism (``TrainState.group``, ``core/mesh.py``): each rank runs
+the step on its rows of the global batch.  The BatchNorms reduce their
+statistics over the group, the gradients are averaged over it in one
+flat-buffer all-reduce after backward, and the metrics are averaged before
+the guard reads the loss, so every rank takes the same branch; mixup
+permutes the global batch (``mix_rows``).  The levels and λ come from the
+level generator, seeded alike on every rank.  The collectives are
+synchronous on the current stream, so a CUDA graph captures them.
+
 ``pipelined_train_step`` is the port of ``make_pipelined_train_step``: it
 draws the step's mixup and levels on the device, runs the step and then
 the NEXT batch's augmentation, the JAX package's one program per step; the
@@ -54,6 +63,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from pcrlv2_tpu_torch.core import mesh
 from pcrlv2_tpu_torch.core.device import on_device
 from pcrlv2_tpu_torch.ops.resize import upsample_linear
 from pcrlv2_tpu_torch.train.losses import beta_schedule, cos_loss, mse_loss, select
@@ -65,11 +75,15 @@ LOSS_GUARD = {3: 1000.0, 2: None}
 
 
 class TrainState:
-    """Model (parameters and BN statistics), optimizer and step counter."""
+    """Model (parameters and BN statistics), optimizer and step counter,
+    and the data-parallel process group they are replicated over (None:
+    one rank); the model's BatchNorms take their statistics over it."""
 
     def __init__(self, model: torch.nn.Module, momentum: float = 0.9,
-                 weight_decay: float = 1e-4):
+                 weight_decay: float = 1e-4, group=None):
         self.model = model
+        self.group = group
+        mesh.set_stat_group(model, group)
         self.optimizer = SGD(list(model.parameters()), momentum, weight_decay)
         device = next(model.parameters()).device
         #: updates applied, a 0-d int64 tensor on the model's device
@@ -93,18 +107,27 @@ def forward(model: torch.nn.Module, x: torch.Tensor, local: bool = False):
     return outs
 
 
+def mix_rows(t: torch.Tensor, lam: torch.Tensor, perm: torch.Tensor, group=None):
+    """This rank's rows of ``λ·t + (1 − λ)·t[perm]`` over the global batch
+    (every rank's rows of ``t`` in rank order; ``perm`` permutes them)."""
+    b = t.shape[0]
+    rows = perm if group is None else perm.narrow(0, mesh.rank(group) * b, b)
+    return lam * t + (1.0 - lam) * mesh.all_gather_rows(t, group).index_select(0, rows)
+
+
 def loss_fn(model: torch.nn.Module, views: Dict[str, torch.Tensor],
             levels, epoch, beta_period: float = 240.0,
-            mix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+            mix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, group=None):
     """The 4-term PCRLv2 loss → ``(total, metrics)``; metrics are detached.
     ``levels`` and ``epoch`` as ``train_step`` takes them; ``mix`` = (λ,
-    perm) mixes x1, x2 and gt first."""
+    perm) mixes x1, x2 and gt first, over the global batch of ``group``'s
+    ranks.  Under a group the loss is this rank's rows' (their mean), on the
+    global batch's BatchNorm statistics."""
     x1, x2, gt = views["x1"], views["x2"], views["gt"]
     levels = on_device(levels, torch.int64, x1.device)
     epoch = on_device(epoch, torch.int64, x1.device)
     if mix is not None:
-        lam, perm = mix
-        x1, x2, gt = (lam * t + (1.0 - lam) * t.index_select(0, perm) for t in (x1, x2, gt))
+        x1, x2, gt = (mix_rows(t, *mix, group) for t in (x1, x2, gt))
     out1, feats1, masks1 = forward(model, x1)
     _, feats2, _ = forward(model, x2)
     local_flat, b, n_views = flatten_locals(views["locals"])
@@ -155,11 +178,14 @@ def train_step(state: TrainState, views: Dict[str, torch.Tensor],
     torch._foreach_copy_(state.saved_stats, buffers)
     for p in model.parameters():
         p.grad = None
-    loss, metrics = loss_fn(model, views, levels, epoch, beta_period, mix)
-    bad = ~torch.isfinite(loss.detach())
-    if loss_guard is not None:
-        bad = bad | ((loss.detach() > loss_guard) & (epoch > guard_warmup_epochs))
+    loss, metrics = loss_fn(model, views, levels, epoch, beta_period, mix, state.group)
     loss.backward()
+    mesh.sync_gradients(model.parameters(), state.group)
+    # the global batch's loss decides for every rank alike
+    metrics = global_mean(metrics, state.group)
+    bad = ~torch.isfinite(metrics["loss"])
+    if loss_guard is not None:
+        bad = bad | ((metrics["loss"] > loss_guard) & (epoch > guard_warmup_epochs))
     state.optimizer.step(lr, skip=bad)
     with torch.no_grad():
         for buf, old in zip(buffers, state.saved_stats):
@@ -168,6 +194,16 @@ def train_step(state: TrainState, views: Dict[str, torch.Tensor],
     metrics["level"] = levels[0]
     metrics["skipped"] = bad.float()
     return metrics
+
+
+def global_mean(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The 0-d ``metrics`` averaged over ``group``'s ranks in one
+    all-reduce (each rank's are means over as many rows); as they are
+    without a group."""
+    if group is None:
+        return metrics
+    flat = mesh.all_reduce_(torch.stack(list(metrics.values())), group) / mesh.world(group)
+    return dict(zip(metrics, flat.unbind()))
 
 
 def draw_levels(gen: torch.Generator, n_views: int, n_levels: int = 3) -> torch.Tensor:
@@ -211,8 +247,8 @@ def pipelined_train_step(state: TrainState, views: Dict[str, torch.Tensor],
     stateless), so a pipelined run draws what the sequential ``aug_fn`` +
     ``train_step`` loop draws, across epochs and resumes; ``next_views`` is
     then None.  The two generators keep the draws of each in order."""
-    mix = (None if mixup_alpha is None
-           else draw_mixup(level_gen, mixup_alpha, views["x1"].shape[0]))
+    mix = (None if mixup_alpha is None else draw_mixup(
+        level_gen, mixup_alpha, views["x1"].shape[0] * mesh.world(state.group)))
     levels = draw_levels(level_gen, views["locals"].shape[1], state.model.n_levels)
     metrics = train_step(state, views, levels, lr, epoch, mix=mix, **step_kwargs)
     next_views = None if raw_next is None else aug_fn(aug_gen, raw_next)

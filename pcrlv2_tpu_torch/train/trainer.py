@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pcrlv2_tpu_torch.core import mesh
 from pcrlv2_tpu_torch.core.device import resolve_device
 from pcrlv2_tpu_torch.data.pipeline import CUDA_CALLS, device_prefetch
 from pcrlv2_tpu_torch.ops import _build
@@ -47,7 +48,7 @@ from pcrlv2_tpu_torch.train.optimizer import cosine_lr
 from pcrlv2_tpu_torch.train.step import (LOSS_GUARD, TrainState, eval_step,
                                          pipelined_train_step)
 from pcrlv2_tpu_torch.utils import chiplock
-from pcrlv2_tpu_torch.utils.meters import AverageMeter, MetricLogger
+from pcrlv2_tpu_torch.utils.meters import AverageMeter, MetricLogger, metrics_path
 
 #: eager steps before the first capture: the first step builds and binds the
 #: kernels and starts cuBLAS and autograd's device thread, none of which a
@@ -116,6 +117,21 @@ def eval_aug_seed(seed: int, index: int) -> int:
     views: a stream of (seed, index) apart from the eval levels'."""
     return int(np.random.SeedSequence([seed % 2 ** 32, index], spawn_key=(2,))
                .generate_state(1)[0])
+
+
+def ragged_tail(raw: dict, global_batch: int, world: int) -> bool:
+    """Whether to skip ``raw``, an eval batch, under ``world`` ranks: the JAX
+    trainer skips, with this warning, a tail batch its data axis cannot
+    split under multihost sharding (``pcrlv2_tpu/train/trainer.py:209-224``);
+    each of the port's ranks holds its own rows, and it skips a tail
+    shorter than a rank's share of ``global_batch``, so that the ranks'
+    batches stay rows of one global batch of ``global_batch``."""
+    bsz = int(next(iter(raw.values())).shape[0])
+    if world == 1 or bsz * world == global_batch:
+        return False
+    print(f"WARNING: eval tail batch of {bsz} samples skipped (short of the "
+          f"{global_batch // world} rows each of the {world} data-parallel ranks takes)")
+    return True
 
 
 def level_seed(seed: int) -> int:
@@ -236,15 +252,25 @@ def _step_fn(state: TrainState, aug_gen, level_gen, lr, epoch, aug_fn,
 class Trainer:
     """Drives the pipelined step over epochs on ``device`` (default: CUDA),
     there as CUDA graphs unless ``cuda_graph=False``; the model (``PCRLv23d``
-    or ``PCRLv2``) picks the pipeline."""
+    or ``PCRLv2``) picks the pipeline.
+
+    ``group``: the data-parallel process group (``core/mesh.py``; None: one
+    rank).  Each rank steps on its ``cfg.b / world`` rows of the global batch
+    ``cfg.b`` and augments them on its own stream, seeded from (seed, rank);
+    the levels' stream is the same on every rank.  Rank 0 writes the
+    ``.pt`` and the train state, every rank its generators beside it and
+    its own metrics file (``metrics_path``)."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig, aug_fn,
-                 device=None, cuda_graph: bool = True):
+                 device=None, cuda_graph: bool = True, group=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.state = TrainState(model, cfg.momentum, cfg.weight_decay)
+        self.group = group
+        self.rank, self.world = mesh.rank(group), mesh.world(group)
+        self.state = TrainState(model, cfg.momentum, cfg.weight_decay, group)
         self.aug_fn = aug_fn
-        self.aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.aug_gen = torch.Generator(device=self.device).manual_seed(
+            mesh.rank_seed(cfg.seed, self.rank))
         self.level_gen = torch.Generator(device=self.device).manual_seed(level_seed(cfg.seed))
         #: the epoch's learning rate and number, filled once per epoch
         self.lr = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -255,7 +281,7 @@ class Trainer:
                          if cuda_graph and self.device.type == "cuda" else None)
         self.steps_run = 0
         os.makedirs(cfg.output, exist_ok=True)
-        self.logger = MetricLogger(os.path.join(cfg.output, "metrics.jsonl"))
+        self.logger = MetricLogger(metrics_path(cfg.output, self.rank))
 
     def generators(self) -> dict:
         return {"aug": self.aug_gen, "level": self.level_gen}
@@ -319,7 +345,10 @@ class Trainer:
     def evaluate(self, batch_iter, max_batches: Optional[int] = None) -> dict:
         """The loss averaged over the eval batches (each weighted by its size;
         the last may be short), at most ``max_batches`` of them (default
-        ``cfg.eval_batches``; 0 = all).  Leaves the train state untouched."""
+        ``cfg.eval_batches``; 0 = all).  Leaves the train state untouched.
+        Under more than one rank each rank evaluates its slice, the sums and
+        counts are added over the ranks, and a ragged tail is skipped as the
+        JAX trainer skips it under multihost sharding."""
         if max_batches is None:
             max_batches = self.cfg.eval_batches
         model = self.state.model
@@ -327,9 +356,11 @@ class Trainer:
         for i, raw in enumerate(batch_iter):
             if max_batches and i >= max_batches:
                 break
+            if ragged_tail(raw, self.cfg.b, self.world):
+                continue
             if model.dim == 2:
                 gen = torch.Generator(device=self.device).manual_seed(
-                    eval_aug_seed(self.cfg.seed, i))
+                    eval_aug_seed(mesh.rank_seed(self.cfg.seed, self.rank), i))
                 views = self.aug_fn(gen, self.to_device(raw))
             else:
                 views = raw_batch_to_views(self.to_device(raw))
@@ -337,11 +368,19 @@ class Trainer:
             metrics = eval_step(model, views, levels)
             for k in meters:
                 meters[k].update(float(metrics[k]), views["x1"].shape[0])
-        return {k: m.avg for k, m in meters.items()}
+        if self.group is None:
+            return {k: m.avg for k, m in meters.items()}
+        sums = mesh.all_reduce_(torch.tensor(
+            [m.sum for m in meters.values()] + [meters["loss"].count],
+            dtype=torch.float64, device=self.device), self.group).tolist()
+        return {k: s / max(sums[-1], 1) for k, s in zip(meters, sums)}
 
-    def save_reference_ckpt(self, epoch: int) -> str:
+    def save_reference_ckpt(self, epoch: int) -> Optional[str]:
         """The reference's ``.pt``: the whole ``PCRLv23d``, or the 2D model's
-        encoder (``train_2d.py:99``)."""
+        encoder (``train_2d.py:99``); written by rank 0 alone (the weights
+        are the same on every rank), None elsewhere."""
+        if not mesh.is_main(self.group):
+            return None
         path = os.path.join(self.cfg.output, self.cfg.ckpt_name(epoch))
         model = self.state.model
         if model.dim == 2:
@@ -359,11 +398,12 @@ class Trainer:
 
     def save_state(self, epoch: int) -> str:
         return save_train_state(self.cfg.state_dir, epoch, self.state,
-                                self.generators())
+                                self.generators(), self.rank)
 
     def restore_state(self, state_dir: str) -> int:
-        """Load the train state saved in ``state_dir``; returns its epoch."""
-        return load_train_state(state_dir, self.state, self.generators())
+        """Load the train state saved in ``state_dir`` (this rank's
+        generators); returns its epoch."""
+        return load_train_state(state_dir, self.state, self.generators(), self.rank)
 
 
 def profiled(profile_dir: Optional[str], device: torch.device):
@@ -392,7 +432,8 @@ SCRATCH_WARNING = (
 
 
 def run_training(model: torch.nn.Module, cfg: TrainConfig, loader, aug_fn,
-                 device=None, eval_loader=None, cuda_graph: bool = True) -> Trainer:
+                 device=None, eval_loader=None, cuda_graph: bool = True,
+                 group=None) -> Trainer:
     """Epochs 0..cfg.epochs, or from the epoch after the one saved in
     ``cfg.resume`` (reference epoch loop ``train_3d.py:60-83``; eval, save
     and profile cadence of the JAX trainer, ``trainer.py:419-457``), on a
@@ -401,10 +442,11 @@ def run_training(model: torch.nn.Module, cfg: TrainConfig, loader, aug_fn,
     initial weights (``Trainer.load_encoder_weights``); a 2D pretask run
     without them, and not resumed, says it starts from scratch.  On a CUDA
     device the run holds the GPU lock (``utils/chiplock.py``; it warns if
-    another process holds it) and releases it however the run ends."""
-    trainer = Trainer(model, cfg, aug_fn, device, cuda_graph)
+    another process holds it) and releases it however the run ends; under
+    ``group`` the first rank of each host holds it for the job."""
+    trainer = Trainer(model, cfg, aug_fn, device, cuda_graph, group)
     lock = (chiplock.guard_warn(f"trainer d={model.dim} n={cfg.n} output={cfg.output}")
-            if trainer.device.type == "cuda" else None)
+            if trainer.device.type == "cuda" and mesh.local_rank(group) == 0 else None)
     try:
         if cfg.encoder_weights:
             trainer.load_encoder_weights(cfg.encoder_weights)

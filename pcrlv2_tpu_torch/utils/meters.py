@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from typing import Dict, Optional
@@ -27,6 +28,16 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
+
+
+def metrics_path(output_dir: str, rank: int = 0, name: str = "metrics.jsonl") -> str:
+    """Rank ``rank``'s metrics file in a (possibly shared) output directory:
+    ``name`` on rank 0, which every tool reads, ``metrics.rank{i}.jsonl`` on
+    the others, so ranks never interleave lines in one stream."""
+    if rank:
+        base, ext = os.path.splitext(name)
+        name = f"{base}.rank{rank}{ext}"
+    return os.path.join(output_dir, name)
 
 
 class MetricLogger:

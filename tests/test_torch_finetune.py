@@ -18,6 +18,7 @@ the port's dropout is held by its own test.
 """
 
 import os
+from functools import partial
 
 import numpy as np
 import pytest
@@ -45,7 +46,7 @@ from pcrlv2_tpu_torch.train import finetune as ft
 from pcrlv2_tpu_torch.train.step import TrainState
 from pcrlv2_tpu_torch.train.trainer import TrainConfig
 
-from tests.f64_reference import convs_as_products
+from tests.f64_reference import ONCE_COMPILE, convs_as_products
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -146,7 +147,7 @@ def chest_setup():
         tx = sgd()
         step = jft.make_finetune_step_2d(jmodel, tx)
 
-        @jax.jit
+        @partial(jax.jit, compiler_options=ONCE_COMPILE)
         def run(params, stats, x, images, labels):
             logits, mutated = jmodel.apply({"params": params, "batch_stats": stats}, x,
                                            train=True, mutable=["batch_stats"])

@@ -16,6 +16,7 @@ a multiple of 32, the encoder's stride).
 """
 
 import os
+from functools import partial
 
 import numpy as np
 import pytest
@@ -45,7 +46,7 @@ from pcrlv2_tpu_torch.train import checkpoint as ckpt
 from pcrlv2_tpu_torch.train.step import (LOSS_GUARD, TrainState, draw_levels, loss_fn,
                                          pipelined_train_step, train_step)
 
-from tests.f64_reference import convs_as_products
+from tests.f64_reference import ONCE_COMPILE, convs_as_products
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -134,7 +135,7 @@ def jax_forwards(weights):
     with jax.enable_x64(True), convs_as_products():
         model = JaxPCRLv2(policy=F64)
 
-        @jax.jit
+        @partial(jax.jit, compiler_options=ONCE_COMPILE)
         def run(params, stats, eval_stats, xg, xl):
             def train(x, local):
                 return model.apply({"params": params, "batch_stats": stats}, x, local=local,
@@ -222,7 +223,8 @@ def f64_run(weights):
         levels = jax_levels(key, N_VIEWS)
         jloss = make_loss_fn(JaxPCRLv2(policy=F64), dim=2)
         (value, (_, metrics)), grads = jax.jit(jax.value_and_grad(
-            lambda p, s, v: jloss(p, s, v, key, 0), has_aux=True))(
+            lambda p, s, v: jloss(p, s, v, key, 0), has_aux=True),
+            compiler_options=ONCE_COMPILE)(
             *_to64((weights["params"], weights["batch_stats"], views)))
         # rounded to f32 on the way: 6e-8 relative, far below the tolerances
         grads = ckpt.from_jax_variables(

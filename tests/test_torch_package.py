@@ -38,7 +38,8 @@ def test_package_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(pcrlv2_tpu_torch.__path__,
                                                   "pcrlv2_tpu_torch.")]
     for name in ("ops.conv3d_kernel", "native", "utils.chiplock", "tools.bench",
-                 "models.resnet", "models.unet2d", "data.augment2d", "train.finetune"):
+                 "models.resnet", "models.unet2d", "data.augment2d", "train.finetune",
+                 "core.mesh"):
         assert f"pcrlv2_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -68,12 +69,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     (["--synthetic", "--phase", "finetune", "--spatial", "2"], "does not support --spatial"),
     ([], "--data is required"),
     (["--synthetic", "--spatial", "2"], "pcrlv2_tpu/parallel/spatial_train.py"),
-    (["--synthetic", "--multihost"], "pcrlv2_tpu/core/mesh.py"),
+    (["--synthetic", "--multihost", "--spatial", "2"], "pcrlv2_tpu/parallel/spatial_train.py"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
-    """Paths not ported yet stop naming the JAX module they wait for;
-    without a data source the CLI says what it needs; finetuning refuses
-    ``--multihost`` and ``--spatial`` as the JAX CLI does."""
+    """Paths not ported yet stop naming the JAX module they wait for (spatial
+    sharding, also across a ``--multihost`` group, before the group is
+    joined); without a data source the CLI says what it needs; finetuning
+    refuses ``--multihost`` and ``--spatial`` as the JAX CLI does."""
     with pytest.raises(SystemExit, match=item):
         cli.main(argv + ["--device", "cpu"])
 
