@@ -173,7 +173,29 @@ Phases, any failure exits non-zero without the final line:
    memory of both runs (the gap is the collectives' cost at world 1);
    (c) where the machine has 2 GPUs or more, a 2-rank NCCL epoch through
    the CLI's own spawning (``--gpus 0,1``); with one, a line says
-   ``skipped: 1 device``.
+   ``skipped: 1 device``;
+15. the offline data tools (host code, ``pcrlv2_tpu_torch/preprocess``):
+   write a raw LUNA tree of int16 MetaImages (``MHD_VOLUMES``: one at
+   LUNA16's 512 × 512 × 133 at 0.703 × 0.703 × 2.5 mm, two smaller, in
+   subset 0 and the held-out subset 7), run ``python -m
+   pcrlv2_tpu_torch.cli.luna_preprocess --scale 8 --procs 2`` on it, which
+   must resample through the port's native library (it fails the phase
+   otherwise, with the library's build error), and check every pair's
+   shapes (``check_pairs``); time the LUNA-size volume's read, native and
+   NumPy resample and crop pairs (``volume_times``); then train the 3D
+   pretask on the made tree (``--b 4 --amp --eval_every 1``, 4 steps on the
+   graphs through the native reader, 2 eval batches): launches exact,
+   losses finite, the ``.pt`` strict;
+16. activation checkpointing (``PCRLv23d(remat=True)``): two epochs of the
+   pipelined ``--amp`` step on the graphs from one state and seed against
+   the plain model's, bit for bit (or, with every difference printed,
+   within ``REMAT_TOL``), and against remat's own eager loop, bit for bit;
+   launches exact (``expected_launches(remat=True)``: the forwards of #1
+   and #3 again in each backward); ``SYNC_STEPS`` replays under the
+   sync-debug mode; then the bench under ``--amp``'s policy at b = 32
+   without and with ``BENCH_REMAT=1``, remat at b = 64, and remat at
+   b = 128 where twice b = 64's peak fits the free memory (steps cut):
+   volumes/s, the trials' spread and peak memory.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Per-shape results (errors, times,
@@ -291,23 +313,30 @@ PROBE_REPS = 20  # calls a probe's device time is averaged over (phase 9)
 # only.  A finetune step (phase 13) runs the model once, at local=True, and
 # only its output carries a loss: 14 forwards, 14 dw, 13 dx and 3 head
 # forwards, no head backward; a finetune eval batch 14 forwards and 3 head
-# forwards.  Which kernel runs the forward and the dx follows PCRL_CONV3D:
+# forwards.  Under remat (``PCRLv23d(remat=True)``, phase 16) every 3³ conv
+# and head of a train step's model calls sits in a recomputed transition:
+# the backward runs each forward again, 42 more forwards and 9 more head
+# forwards a step; eval records no gradient and runs nothing again.
+# Which kernel runs the forward and the dx follows PCRL_CONV3D:
 FWD_DX = {"pallas": ("conv3d_fwd", "conv3d_fwd"),
           "packed": ("conv3d_packed", "conv3d_packed"),
           "im2col": ("conv3d_im2col", "conv3d_fwd")}
 
 
 def expected_launches(selector: str, steps: int, eval_batches: int,
-                      finetune: bool = False) -> dict:
+                      finetune: bool = False, remat: bool = False) -> dict:
     """The counts a run of ``steps`` train steps and ``eval_batches`` eval
     batches must show (a graph replay adds its capture's counts), pretask
-    or (``finetune``) finetune."""
+    or (``finetune``) finetune; ``remat``: the forwards run again in each
+    step's backward."""
     calls = 1 if finetune else 3  # model calls a step: the volume, or x1, x2, locals
+    runs = 2 if remat else 1  # forwards of a train step's model call
     expect = {k: 0 for k in KERNELS}
-    expect.update(conv3d_dw=14 * calls * steps, head_fwd=3 * calls * (steps + eval_batches),
+    expect.update(conv3d_dw=14 * calls * steps,
+                  head_fwd=3 * calls * (runs * steps + eval_batches),
                   head_bwd=0 if finetune else 3 * steps)
     fwd, dx = FWD_DX[selector]
-    expect[fwd] += 14 * calls * (steps + eval_batches)
+    expect[fwd] += 14 * calls * (runs * steps + eval_batches)
     expect[dx] += 13 * calls * steps
     return expect
 
@@ -732,12 +761,12 @@ def env_var(name: str, value: str):
 
 
 def launched(selector: str, steps: int, eval_batches: int, what: str,
-             finetune: bool = False) -> dict:
+             finetune: bool = False, remat: bool = False) -> dict:
     """The launch counters against ``expected_launches``."""
     from pcrlv2_tpu_torch.ops import _build
 
     counts = {k: _build.launches[k] for k in KERNELS}
-    expect = expected_launches(selector, steps, eval_batches, finetune)
+    expect = expected_launches(selector, steps, eval_batches, finetune, remat)
     if counts != expect:
         raise AssertionError(f"{what}: launches {counts}, expected {expect}")
     return counts
@@ -1239,27 +1268,31 @@ def graph_batches(seed: int) -> dict:
 
 
 def graph_trainer(amp: bool, out: str, cuda_graph: bool, seed: int = 7, mixup=None,
-                  **aug_flags):
+                  remat: bool = False, **aug_flags):
     """A trainer at full width from one seed (epochs 0-2 of the cosine LR, so
     epoch 1 runs at another rate than epoch 0); ``mixup`` and ``aug_flags``
-    (``make_luna_aug_fn``'s) as the CLI's flags set them (phase 11)."""
+    (``make_luna_aug_fn``'s) as the CLI's flags set them (phase 11);
+    ``remat``: ``PCRLv23d(remat=True)`` (phase 16)."""
     from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
     from pcrlv2_tpu_torch.data.augment3d import make_luna_aug_fn
     from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
     from pcrlv2_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    model = PCRLv23d(policy=DEFAULT_POLICY if amp else PARITY_POLICY, seed=seed, device="cuda")
+    model = PCRLv23d(policy=DEFAULT_POLICY if amp else PARITY_POLICY, seed=seed, device="cuda",
+                     remat=remat)
     cfg = TrainConfig(b=BATCH, epochs=2, lr=1e-2, log_every=100, seed=3, amp=amp, output=out,
                       mixup=mixup)
     return Trainer(model, cfg, make_luna_aug_fn(**aug_flags), "cuda", cuda_graph=cuda_graph)
 
 
-def run_epochs(trainer, batches: dict, what: str, dim: int = 3, finetune: bool = False):
+def run_epochs(trainer, batches: dict, what: str, dim: int = 3, finetune: bool = False,
+               remat: bool = False):
     """``trainer.train_epoch`` over ``batches``; every step's metrics copied
     as the step returns (before a replay writes over them); the launch
-    counters set to 0 before and checked after (``dim`` 2: all 0).  A
-    ``FinetuneTrainer`` (``finetune``) steps on a batch and returns its
-    metrics alone.  Returns (metrics, counts)."""
+    counters set to 0 before and checked after (``dim`` 2: all 0; ``remat``:
+    the recomputed forwards counted).  A ``FinetuneTrainer`` (``finetune``)
+    steps on a batch and returns its metrics alone.  Returns (metrics,
+    counts)."""
     import torch
 
     from pcrlv2_tpu_torch.ops import _build
@@ -1279,7 +1312,7 @@ def run_epochs(trainer, batches: dict, what: str, dim: int = 3, finetune: bool =
         for epoch, epoch_batches in batches.items():
             trainer.train_epoch(epoch, epoch_batches)
         torch.cuda.synchronize()
-        counts = (launched("pallas", len(seen), 0, what, finetune) if dim == 3
+        counts = (launched("pallas", len(seen), 0, what, finetune, remat) if dim == 3
                   else no_launches(what))
     finally:
         del trainer.step
@@ -2415,6 +2448,294 @@ def dp_phase() -> dict:
     return dp
 
 
+# Phase 15: the offline data tools.  (subset, series UID, (z, y, x) voxels,
+# (x, y, z) spacing in mm) of the raw tree: the first at LUNA16's size, 512 ×
+# 512 × 133 at 0.703 × 0.703 × 2.5 mm, which resamples to 360 × 360 × 333;
+# two smaller ones, one of them in the held-out fold 7
+MHD_VOLUMES = [(0, "1.3.6.1.4.1.16.1", (133, 512, 512), (0.703, 0.703, 2.5)),
+               (0, "1.3.6.1.4.1.16.2", (60, 256, 256), (0.9, 0.9, 2.0)),
+               (7, "1.3.6.1.4.1.16.7", (60, 256, 256), (0.9, 0.9, 2.0))]
+PAIRS = 8  # --scale: 16 train pairs (4 steps at b = 4) and 8 held out (2 eval batches)
+#: the native resampler against the NumPy path, on HU values of up to 1000
+#: in magnitude (the JAX package's ``tests/test_native_io.py`` tolerance)
+RESAMPLE_TOL = 2e-3
+
+
+def write_mhd_tree(root: str) -> None:
+    """``MHD_VOLUMES`` as int16 MetaImages (``.mhd`` header, ``.raw`` blob)
+    of lung-like HU values, uniform in [-1000, -400), all below the air
+    filter's threshold, from a seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(16)
+    for subset, uid, zyx, spacing in MHD_VOLUMES:
+        d = os.path.join(root, f"subset{subset}")
+        os.makedirs(d, exist_ok=True)
+        rng.randint(-1000, -400, size=zyx, dtype=np.int16).tofile(os.path.join(d, uid + ".raw"))
+        with open(os.path.join(d, uid + ".mhd"), "w") as f:
+            f.write("ObjectType = Image\nNDims = 3\nBinaryData = True\n"
+                    "BinaryDataByteOrderMSB = False\nCompressedData = False\n"
+                    "TransformMatrix = 1 0 0 0 1 0 0 0 1\nOffset = -195 -195 -378\n"
+                    f"ElementSpacing = {' '.join(map(str, spacing))}\n"
+                    f"DimSize = {' '.join(map(str, zyx[::-1]))}\nElementType = MET_SHORT\n"
+                    f"ElementDataFile = {uid}.raw\n")
+
+
+def check_pairs(tree: str) -> int:
+    """Every crop pair of the tree in the shapes the disk reader takes:
+    ``_global_`` (2, 64, 64, 32) and ``_local_`` (6, 16, 16, 16), float32,
+    finite, in [0, 1]; ``PAIRS`` of each per volume.  Returns the pairs."""
+    import numpy as np
+
+    n = 0
+    for subset, uid, _, _ in MHD_VOLUMES:
+        for k in range(PAIRS):
+            for kind, shape in (("global", (2, 64, 64, 32)), ("local", (6, 16, 16, 16))):
+                a = np.load(os.path.join(tree, f"subset{subset}", f"{uid}_{kind}_{k}.npy"))
+                if a.shape != shape or a.dtype != np.float32 or not np.isfinite(a).all() \
+                        or a.min() < -1e-4 or a.max() > 1 + 1e-4:
+                    raise AssertionError(f"{uid}_{kind}_{k}: {a.dtype}{a.shape}, range "
+                                         f"[{a.min()}, {a.max()}]")
+            n += 1
+    return n
+
+
+def volume_times(path: str, tmp: str) -> dict:
+    """The LUNA-size volume's stages, timed on the host: read, the native
+    resample (against the NumPy path, ``RESAMPLE_TOL``) and ``PAIRS`` crop
+    pairs."""
+    import random
+
+    import numpy as np
+
+    from pcrlv2_tpu_torch import native
+    from pcrlv2_tpu_torch.preprocess import luna, mhd
+
+    t0 = time.perf_counter()
+    img = mhd.read_mhd(path)
+    read_s = time.perf_counter() - t0
+    out_size, scales = mhd._resample_plan(img, (1.0, 1.0, 1.0))
+    t0 = time.perf_counter()
+    vol = native.resample_to_xyz(img.array, scales, out_size)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = mhd.resample_isotropic(img).array.transpose(2, 1, 0)
+    numpy_s = time.perf_counter() - t0
+    err = float(np.abs(vol - plain).max())
+    if err > RESAMPLE_TOL:
+        raise AssertionError(f"native resample differs from NumPy's by {err}")
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    luna.generate_pairs_from_volume(vol, tmp, "timed", luna.PreprocessConfig(scale=PAIRS),
+                                    random.Random(1), np.random.RandomState(1))
+    pairs_s = time.perf_counter() - t0
+    return {"voxels": list(img.array.shape[::-1]), "voxels_1mm": list(vol.shape),
+            "read_s": read_s, "resample_native_s": native_s, "resample_numpy_s": numpy_s,
+            "native_vs_numpy_max_abs": err, "pairs_s": pairs_s, "pair_s": pairs_s / PAIRS}
+
+
+def offline_phase() -> dict:
+    """Phase 15 (the module docstring's item 15)."""
+    import subprocess
+
+    import torch
+
+    from pcrlv2_tpu_torch import native
+    from pcrlv2_tpu_torch.cli.main import prepare
+    from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
+    from pcrlv2_tpu_torch.ops import _build
+    from pcrlv2_tpu_torch.train.checkpoint import import_pcrlv23d
+    from pcrlv2_tpu_torch.train.trainer import run_training
+
+    print("[15] the offline data tools", flush=True)
+    t15 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, tree, run_dir = (os.path.join(tmp, d) for d in ("raw", "tree", "out"))
+        t0 = time.perf_counter()
+        write_mhd_tree(raw)
+        out["mhd_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pcrlv2_tpu_torch.cli.luna_preprocess",
+                               "--data", raw, "--save", tree, "--scale", str(PAIRS),
+                               "--procs", "2"], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        out["cli_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"luna_preprocess failed:\n{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-3000:]}")
+        said = [x for x in proc.stdout.splitlines() if x.startswith("==> resampler")]
+        if not said or not said[0].startswith("==> resampler: native (") \
+                or f"wrote {PAIRS * len(MHD_VOLUMES)} crop pairs" not in proc.stdout:
+            raise AssertionError(f"luna_preprocess: {proc.stdout[-2000:]}")
+        if not native.available():
+            raise AssertionError(f"the native library did not load: {native.build_error()}")
+        out["resampler"] = said[0]
+        out["pairs"] = check_pairs(tree)
+        out["timed"] = v = volume_times(os.path.join(raw, "subset0", MHD_VOLUMES[0][1] + ".mhd"),
+                                        os.path.join(tmp, "timed"))
+        print(f"[15] python -m pcrlv2_tpu_torch.cli.luna_preprocess --scale {PAIRS} --procs 2: "
+              f"{said[0][4:]}; {out['pairs']} pairs of {len(MHD_VOLUMES)} volumes in "
+              f"{out['cli_s']:.1f} s, shapes (2, 64, 64, 32) and (6, 16, 16, 16) float32",
+              flush=True)
+        print(f"[15] per volume, {'×'.join(map(str, v['voxels']))} → "
+              f"{'×'.join(map(str, v['voxels_1mm']))} at 1 mm: read {v['read_s']:.3f} s, "
+              f"resample native {v['resample_native_s']:.3f} s (NumPy "
+              f"{v['resample_numpy_s']:.3f} s, max |native − NumPy| "
+              f"{v['native_vs_numpy_max_abs']:.2e}), crop pairs {v['pair_s']:.3f} s a pair "
+              f"({v['pairs_s']:.3f} s for {PAIRS})", flush=True)
+        argv = ["--data", tree, "--d", "3", "--n", "luna", "--phase", "pretask", "--b",
+                str(BATCH), "--amp", "--epochs", "0", "--eval_every", "1", "--eval_batches",
+                "2", "--log_every", "1", "--seed", "0", "--output", run_dir]
+        with env_var("PCRL_CONV3D", "pallas"):
+            model, cfg, loaders, aug_fn, device = prepare(argv)
+            reader = native_reader(loaders)
+            steps, evals = len(loaders["train"]), min(2, len(loaders["eval"]))
+            _build.launches.clear()
+            trainer = run_training(model, cfg, loaders["train"], aug_fn, device,
+                                   eval_loader=loaders["eval"])
+            torch.cuda.synchronize()
+            out["counts"] = launched("pallas", steps, evals, "pretask on the made tree")
+        rows, step_list = step_rows(os.path.join(run_dir, "metrics.jsonl"))
+        ev = [r["eval"] for r in rows if "eval" in r]
+        if len(step_list) != steps or reader.batches != steps or len(ev) != 1 \
+                or not all(math.isfinite(x) for x in ev[0].values()):
+            raise AssertionError(f"{len(step_list)} of {steps} steps logged, "
+                                 f"{reader.batches} read natively, evals {ev}")
+        import_pcrlv23d(os.path.join(run_dir, "pcrlv2_luna_pretask_1.0_0.pt"),
+                        PCRLv23d(device="cuda", seed=1))
+        out.update(steps=steps, eval_batches=evals, losses=[r["loss"] for r in step_list],
+                   eval=ev[0], graphs=len(trainer.captured.graphs))
+        trainer.logger.close()
+        del trainer
+        gc.collect()
+    print(f"[15] pretask --amp on the made tree: {steps} steps on the graphs "
+          f"({out['graphs']} graphs), native reader, launches {out['counts']}, losses "
+          f"{[round(x, 5) for x in out['losses']]}, eval loss {out['eval']['loss']:.5f} over "
+          f"{evals} batches, .pt strict", flush=True)
+    out["phase_s"] = time.perf_counter() - t15
+    print(f"[15] phase 15 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# Phase 16: activation checkpointing.  A leaf of the remat run that is not
+# bit-identical to the plain run's must lie within this share of the plain
+# leaf's largest entry: one bf16 rounding of a recomputed operand moves a
+# result by 2⁻⁸ of its size, and a few such roundings stay under 1e-2
+REMAT_TOL = 1e-2
+#: (name, BENCH_BATCH, BENCH_REMAT) of phase 16's bench runs under --amp's policy
+REMAT_BENCH = [("b32_amp", 32, False), ("b32_amp_remat", 32, True),
+               ("b64_amp_remat", 64, True)]
+#: remat's next power of two, run when twice b = 64's peak fits in the
+#: card's free memory, with its steps cut (a step there takes about 4 × b = 32's)
+REMAT_LARGE = (128, {"BENCH_WARMUP": "3", "BENCH_STEPS": "3", "BENCH_TRIALS": "3"})
+
+
+def remat_identity(tmp: str) -> dict:
+    """Phase 16 (a-c): the pipelined ``--amp`` step of ``PCRLv23d(remat=True)``
+    on the graphs, two epochs of ``GRAPH_EPOCHS`` batches, against the plain
+    model's on the graphs from the same state and batches (bit for bit, or
+    within ``REMAT_TOL`` with every difference printed), and against its own
+    eager loop (bit for bit); launches exact; ``SYNC_STEPS`` replays under
+    the sync-debug mode."""
+    batches = graph_batches(seed=60)
+    plain = graph_trainer(True, os.path.join(tmp, "plain"), cuda_graph=True)
+    remat = graph_trainer(True, os.path.join(tmp, "remat"), cuda_graph=True, remat=True)
+    eager = graph_trainer(True, os.path.join(tmp, "eager"), cuda_graph=False, remat=True)
+    m_plain, _ = run_epochs(plain, batches, "plain model, graphs --amp")
+    m_remat, counts = run_epochs(remat, batches, "remat model, graphs --amp", remat=True)
+    m_eager, _ = run_epochs(eager, batches, "remat model, eager --amp", remat=True)
+    leaves = state_leaves(remat, m_remat)
+    diffs = differences(state_leaves(eager, m_eager), leaves)
+    if diffs:
+        raise AssertionError(f"remat: the graph replays differ from the eager loop in "
+                             f"{len(diffs)} leaves: {diffs[:12]}")
+    plain_leaves = state_leaves(plain, m_plain)
+    vs_plain = [(k, d, d / max(plain_leaves[k].double().abs().max().item(), 1e-30))
+                for k, d in differences(leaves, plain_leaves)]
+    for k, d, rel in vs_plain:
+        print(f"    remat vs plain {k}: largest |difference| {d:.3e} ({rel:.2e} of the "
+              f"plain leaf's largest entry)")
+    if vs_plain and max(rel for _, _, rel in vs_plain) > REMAT_TOL:
+        raise AssertionError(f"remat differs from the plain step beyond {REMAT_TOL}")
+    host = replay_loop(remat, batches[0], SYNC_STEPS)
+    for t in (plain, remat, eager):
+        t.logger.close()
+    return {"steps": len(m_remat), "leaves": len(leaves), "counts": counts,
+            "graphs": len(remat.captured.graphs),
+            "capture_s": list(remat.captured.capture_s.values()),
+            "plain_capture_s": list(plain.captured.capture_s.values()),
+            "vs_plain": [list(x) for x in vs_plain],
+            "losses": [float(m["loss"]) for m in m_remat], "host_s_graph": host}
+
+
+def remat_bench() -> dict:
+    """Phase 16 (d): ``bench.main()`` at ``REMAT_BENCH``, then remat at
+    ``REMAT_LARGE`` where it fits (else why not); the trainers' memory
+    freed before each."""
+    import torch
+
+    from pcrlv2_tpu_torch.tools import bench
+
+    def one(batch: int, remat: bool, env: dict) -> dict:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for k, v in {**env, "BENCH_BATCH": str(batch),
+                         "BENCH_REMAT": "1" if remat else "0"}.items():
+                stack.enter_context(env_var(k, v))
+            r = bench.main()
+        if r["remat"] != remat or r["batch"] != batch:
+            raise AssertionError(f"bench ran remat={r['remat']} at {r['batch']}")
+        return dict(r, wall_s=time.perf_counter() - t0)
+
+    out = {name: one(batch, remat, BENCH_ENV) for name, batch, remat in REMAT_BENCH}
+    batch, env = REMAT_LARGE
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] / 2 ** 30
+    need = out["b64_amp_remat"]["peak_memory_gib"] * batch / 64
+    name = f"b{batch}_amp_remat"
+    if need < 0.9 * free:
+        out[name] = one(batch, True, env)
+    else:
+        out[name] = (f"skipped: about {need:.1f} GiB ({batch / 64:g} × b = 64's peak) of "
+                     f"{free:.1f} GiB free")
+    return out
+
+
+def remat_phase() -> dict:
+    """Phase 16 (the module docstring's item 16)."""
+    print("[16] activation checkpointing: PCRLv23d(remat=True)", flush=True)
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, env_var("PCRL_CONV3D", "pallas"):
+        out = {"identity": remat_identity(tmp)}
+    g = out["identity"]
+    print(f"[16] remat --amp: {g['steps']} steps over two epochs on the graphs ({g['graphs']} "
+          f"graphs, captured in {[round(c, 3) for c in g['capture_s']]} s; plain "
+          f"{[round(c, 3) for c in g['plain_capture_s']]}): all {g['leaves']} leaves "
+          + ("bit-identical to the plain model's" if not g["vs_plain"] else
+             f"within {REMAT_TOL} of the plain model's ({len(g['vs_plain'])} not bit-identical,"
+             f" above)")
+          + f" and to remat's eager loop; launches {g['counts']} "
+          f"(expected_launches(remat=True)); {SYNC_STEPS} replays under "
+          f"set_sync_debug_mode('error'), host s {[round(x, 5) for x in g['host_s_graph']]}",
+          flush=True)
+    out["bench"] = benches = remat_bench()
+    for name, r in benches.items():
+        if isinstance(r, str):
+            print(f"[16] bench {name}: {r}", flush=True)
+            continue
+        print(f"[16] bench {name}: {r['value']} {r['unit']} (trials {r['trials']}"
+              f"{', ' + r['spread_warning'] if 'spread_warning' in r else ''}), peak "
+              f"{r['peak_memory_gib']:.2f} GiB, batch {r['batch']} {r['compute_dtype']}, remat "
+              f"{r['remat']}, {r['device']}, {r['wall_s']:.1f} s", flush=True)
+    out["phase_s"] = time.perf_counter() - t16
+    print(f"[16] phase 16 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_entry(name: str, src: str, replaces: str, launches: int, s: dict) -> dict:
     """One kernel of the kernels line, from its summary ``s``.  ``bf16_ms``,
     ``bf16_bound_ms`` and ``bf16_library_ms`` are its bf16 sums; the tools'
@@ -2718,6 +3039,8 @@ def main() -> int:
 
         ft = finetune_phase(profiles)
         dp = dp_phase()
+        offline = offline_phase()
+        remat = remat_phase()
 
         kernels = [kernel_entry(name, src, replaces, runs[LAUNCHED_IN[name]]["counts"][name],
                                 summary[name]) for name, (src, replaces) in KERNELS.items()]
@@ -2732,7 +3055,8 @@ def main() -> int:
                        "summary": summary, "tools": tools, "tool_rows": tool_rows,
                        "tool_odd_rows": tool_odd_rows, "tool_summary": tool_summary,
                        "graph": graph, "surface": surface, "chest": chest,
-                       "finetune": ft, "data_parallel": dp}, fh,
+                       "finetune": ft, "data_parallel": dp, "offline": offline,
+                       "remat": remat}, fh,
                       indent=1)
     except Exception:  # noqa: BLE001 — report any phase's failure and exit 1
         traceback.print_exc()

@@ -188,16 +188,30 @@ def _not_ported(what: str, module: str):
 
 
 def shard_for_process(args, *lists):
-    """This rank's interleaved slice of each list and a copy of ``args`` with
-    its ``b / world`` batch (the JAX CLI's ``_shard_for_process``; ``--b`` is
-    the global batch).  Every rank's slice is trimmed to the common
-    ``len(lst) // world``: a rank with one more sample would run a step the
-    others do not, and the collectives would wait for it forever."""
+    """Under ``--multihost``, this rank's interleaved slice of each list and a
+    copy of ``args`` with its ``b / world`` batch (the JAX CLI's
+    ``_shard_for_process``; ``--b`` is the global batch).  Every rank's
+    slice is trimmed to the common ``len(lst) // world``: a rank with one
+    more sample would run a step the others do not, and the collectives
+    would wait for it forever.  Otherwise ``args`` and the whole lists, as
+    the JAX CLI leaves them on one host: ranks spawned for ``--gpus`` take
+    their rows of each global batch instead (``loader_part``)."""
     rank, world = args.rank, args.world
-    if world == 1:
+    if world == 1 or not args.multihost:
         return args, lists
     local = argparse.Namespace(**{**vars(args), "b": args.b // world})
     return local, tuple(lst[rank::world][: len(lst) // world] for lst in lists)
+
+
+def loader_part(args):
+    """``HostLoader``'s ``part`` of a rank spawned for ``--gpus``: (rank,
+    world), rows [r·b/w, (r+1)·b/w) of each global batch of ``--b`` drawn
+    from the whole list, as the JAX CLI's one process splits its batches
+    over the devices; None for one rank and under ``--multihost`` (sliced
+    lists, ``shard_for_process``)."""
+    if args.world == 1 or args.multihost:
+        return None
+    return args.rank, args.world
 
 
 class SyntheticLoader:
@@ -265,13 +279,14 @@ def luna_pretask_loaders(args) -> dict:
               "(--h2d_dtype f32 for the exact-parity path)")
     dtype = np.float16 if h2d == "f16" else np.float32
     read_fn = partial(load_luna_sample, dtype=dtype)
+    part = loader_part(args)
     train = HostLoader(x_train, args.b, read_fn, shuffle=True, seed=args.seed,
                        num_workers=args.workers,
-                       batch_read_fn=native_batch_reader(args, x_train[0], dtype))
+                       batch_read_fn=native_batch_reader(args, x_train[0], dtype), part=part)
     # drop_last=False: dropping the ragged tail would leave up to b-1
     # held-out samples out of every pass
     evaluate = (HostLoader(x_valid, args.b, read_fn, shuffle=False, seed=args.seed,
-                           num_workers=args.workers, drop_last=False)
+                           num_workers=args.workers, drop_last=False, part=part)
                 if x_valid else None)
     return {"train": train, "eval": evaluate}
 
@@ -373,10 +388,11 @@ def chest_pretask_loaders(args) -> dict:
         names, args.output)
     args, (names,) = shard_for_process(args, names)
     read = chest_reader(args, canvas)
+    part = loader_part(args)
     train = HostLoader(names, args.b, read, shuffle=True, seed=args.seed,
-                       num_workers=args.workers)
+                       num_workers=args.workers, part=part)
     evaluate = HostLoader(names, args.b, read, shuffle=False, seed=args.seed,
-                          num_workers=args.workers, drop_last=False)
+                          num_workers=args.workers, drop_last=False, part=part)
     return {"train": train, "eval": evaluate}
 
 
@@ -399,7 +415,8 @@ def luna_finetune_loaders(args) -> dict:
                                         test_fold=(), suffix="_global_", file_list=uids)
     print(f"finetune train images {len(x_train)}"
           + (f", validation images {len(x_valid)}" if eval_folds else ""))
-    args, (x_train, x_valid) = shard_for_process(args, x_train, x_valid)
+    # the JAX CLI slices the train list alone here (its eval list whole)
+    args, (x_train,) = shard_for_process(args, x_train)
     if args.mask_dir:
         if not os.path.isdir(args.mask_dir):
             raise SystemExit(f"--mask_dir not found: {args.mask_dir}")
@@ -409,10 +426,11 @@ def luna_finetune_loaders(args) -> dict:
         read_fn = load_luna_sample
         print("==> 3D finetune against intensity-threshold pseudo-masks (documented "
               "placeholder; pass --mask_dir <tree> for real segmentation GT)")
+    part = loader_part(args)
     train = HostLoader(x_train, args.b, read_fn, shuffle=True, seed=args.seed,
-                       num_workers=args.workers)
+                       num_workers=args.workers, part=part)
     evaluate = (HostLoader(x_valid, args.b, read_fn, shuffle=False, seed=args.seed,
-                           num_workers=args.workers, drop_last=False)
+                           num_workers=args.workers, drop_last=False, part=part)
                 if x_valid else None)
     return {"train": train, "eval": evaluate}
 
@@ -436,8 +454,9 @@ def chest_finetune_loaders(args) -> dict:
     print(f"finetune train images {len(names)} (ratio {args.ratio})")
     local, (names, labels) = shard_for_process(args, names, labels)
     read = chest_reader(args, canvas=224)
+    part = loader_part(args)
     train = HostLoader(names, local.b, _labelled(read, names, labels), shuffle=True,
-                       seed=args.seed, num_workers=args.workers)
+                       seed=args.seed, num_workers=args.workers, part=part)
     evaluate = None
     if args.eval_every > 0:
         vtxt = os.path.join(os.path.dirname(txt) or ".", "chest_valid.txt")
@@ -447,7 +466,7 @@ def chest_finetune_loaders(args) -> dict:
             _, (vnames, vlabels) = shard_for_process(args, vnames, vlabels)
             evaluate = HostLoader(vnames, local.b, _labelled(read, vnames, vlabels),
                                   shuffle=False, seed=args.seed, num_workers=args.workers,
-                                  drop_last=False)
+                                  drop_last=False, part=part)
         else:
             print(f"WARNING: --eval_every set but {vtxt} not found — finetune runs without "
                   "an eval pass")

@@ -179,14 +179,24 @@ class HostLoader:
     (the JAX package's order), read ``2·num_workers`` samples ahead on a
     thread pool; with ``drop_last`` the ragged tail is left out.  With
     ``batch_read_fn`` (a ``LunaBatchReader``) each batch's paths are read
-    in one call instead, one batch ahead of the consumer."""
+    in one call instead, one batch ahead of the consumer.
+
+    With ``part`` = (rank, world), ``batch_size`` is the global batch and
+    each batch is this rank's rows [rank·b/world, (rank+1)·b/world) of a
+    global batch of the one shuffled list: the rows the JAX CLI's one
+    process puts on that device of its data mesh.  A global batch shorter
+    than ``batch_size`` (an eval tail) is skipped, with a warning, since
+    the ranks could not split it."""
 
     def __init__(self, paths: Sequence[str], batch_size: int,
                  read_fn: Callable[[str], dict], *, shuffle: bool = True,
                  seed: int = 0, num_workers: int = 8, drop_last: bool = True,
-                 batch_read_fn: Callable[[Sequence[str]], dict] | None = None):
+                 batch_read_fn: Callable[[Sequence[str]], dict] | None = None,
+                 part: tuple[int, int] | None = None):
         if not paths:
             raise ValueError("empty path list")
+        if part is not None and batch_size % part[1]:
+            raise ValueError(f"global batch {batch_size} not divisible by {part[1]} ranks")
         self.paths = list(paths)
         self.batch_size = batch_size
         self.read_fn = read_fn
@@ -195,36 +205,50 @@ class HostLoader:
         self.num_workers = num_workers
         self.drop_last = drop_last
         self.batch_read_fn = batch_read_fn
+        self.part = part
 
     def __len__(self) -> int:
         n = len(self.paths) // self.batch_size
-        if not self.drop_last and len(self.paths) % self.batch_size:
+        if not self.drop_last and self.part is None and len(self.paths) % self.batch_size:
             n += 1
         return n
 
-    def epoch(self, epoch: int) -> Iterator[dict]:
+    def _chunks(self, epoch: int) -> List[List[str]]:
+        """Each batch's paths this epoch."""
         order = np.arange(len(self.paths))
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
         paths = [self.paths[i] for i in order]
+        b = self.batch_size
+        chunks = [paths[i * b:(i + 1) * b] for i in range(len(self))]
+        if self.part is None:
+            return chunks
+        rank, world = self.part
+        tail = len(paths) % b
+        if tail and not self.drop_last:
+            print(f"WARNING: eval tail batch of {tail} samples skipped (short of the {b} "
+                  f"rows of a global batch the {world} data-parallel ranks split)")
+        rows = b // world
+        return [chunk[rank * rows:(rank + 1) * rows] for chunk in chunks]
+
+    def epoch(self, epoch: int) -> Iterator[dict]:
+        chunks = self._chunks(epoch)
         if self.batch_read_fn is not None:
-            yield from self._epoch_batched(paths)
+            yield from self._epoch_batched(chunks)
             return
+        paths = [p for chunk in chunks for p in chunk]
         with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
             pending: collections.deque = collections.deque()
             ahead = self.num_workers * 2
             idx = 0
-            for b in range(len(self)):
-                chunk = paths[b * self.batch_size:(b + 1) * self.batch_size]
+            for chunk in chunks:
                 while idx < len(paths) and len(pending) < ahead + len(chunk):
                     pending.append(pool.submit(self.read_fn, paths[idx]))
                     idx += 1
                 samples = [pending.popleft().result() for _ in range(len(chunk))]
                 yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
-    def _epoch_batched(self, paths: List[str]) -> Iterator[dict]:
-        chunks = [paths[b * self.batch_size:(b + 1) * self.batch_size]
-                  for b in range(len(self))]
+    def _epoch_batched(self, chunks: List[List[str]]) -> Iterator[dict]:
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             fut = pool.submit(self.batch_read_fn, chunks[0]) if chunks else None
             for b in range(len(chunks)):

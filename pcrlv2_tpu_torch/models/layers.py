@@ -14,6 +14,7 @@ old value.  Statistics accumulate in f32; the output is in the compute dtype.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -56,6 +57,23 @@ CONV2D_INITS = {
 }
 
 
+@contextlib.contextmanager
+def recomputing(module: nn.Module):
+    """Marks the forward of ``module`` that an activation checkpoint runs
+    again inside the backward (``models/unet3d.py``'s ``remat``): each
+    ``BatchNorm`` in it, in training, normalizes with the batch statistics
+    again, collectives included, but leaves its running statistics and
+    ``num_batches_tracked`` as the first forward advanced them."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
 def _normalize(x, mean, var, weight, bias, eps, dtype):
     y = (x.float() - mean) * (torch.rsqrt(var + eps) * weight.float())
     return (y + bias.float()).to(dtype)
@@ -82,6 +100,9 @@ class BatchNorm(nn.Module):
         #: the process group whose ranks' rows make the batch (None: this
         #: rank's rows alone; ``core.mesh.set_stat_group``)
         self.stat_group = None
+        #: set while an activation checkpoint runs this forward again
+        #: (``recomputing``): the running statistics stay as they are
+        self.recomputing = False
 
     def forward(self, x):
         if self.training:
@@ -96,6 +117,9 @@ class BatchNorm(nn.Module):
                                          self.stat_group)
             mean = stats[:c] / stats[2 * c:]
             var = torch.clamp(stats[c:2 * c] / stats[2 * c:] - mean * mean, min=0.0)
+            if self.recomputing:
+                return _normalize(x, mean, var, self.weight, self.bias, self.eps,
+                                  self.policy.compute_dtype)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

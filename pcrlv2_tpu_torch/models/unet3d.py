@@ -9,18 +9,22 @@ projection, MLP predictor, Co=1 sigmoid mask).  No skip connections.  Output:
 
 Activations are NDHWC (input (B, X, Y, Z, 1)); ``state_dict()`` is exactly
 the reference ``PCRLv23d`` schema.  Train/eval mode is the module's
-``training`` flag.
+``training`` flag.  ``remat=True`` recomputes each transition's activations
+in the backward instead of keeping them (flax ``nn.remat``).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from pcrlv2_tpu_torch.core.device import resolve_device
 from pcrlv2_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from pcrlv2_tpu_torch.models.layers import (BatchNorm, Conv3d, ConvTranspose3d,
-                                            MLPHead, PReLU, make_act, make_norm)
+                                            MLPHead, PReLU, make_act, make_norm, recomputing)
 from pcrlv2_tpu_torch.ops.pooling import global_avg_pool, max_pool3d
 from pcrlv2_tpu_torch.ops.resize import upsample_linear
 
@@ -93,7 +97,10 @@ class PCRLv23d(nn.Module):
       ``local``.  The mask heads run either way (their BN statistics update).
 
     Built on ``device`` (default: CUDA, raising without it) with weights
-    drawn from ``seed``.
+    drawn from ``seed``.  ``remat``: each ``DownTransition`` and
+    ``UpTransition`` runs under a recomputing checkpoint when gradients are
+    recorded (the JAX ``PCRLv23d(remat=True)``); the modules, and so the
+    ``state_dict`` keys, stay as they are.
     """
 
     #: SimSiam levels (decoder stages) and the spatial rank of the input
@@ -102,12 +109,14 @@ class PCRLv23d(nn.Module):
 
     def __init__(self, n_class: int = 1, act: str = "relu", norm: str = "bn",
                  in_channels: int = 1, policy: Policy = DEFAULT_POLICY,
-                 upsample_masks: bool = True, seed: int = 0, device=None):
+                 upsample_masks: bool = True, seed: int = 0, device=None,
+                 remat: bool = False):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.policy = policy
         self.upsample_masks = upsample_masks
+        self.remat = remat
         self.down_tr64 = DownTransition(in_channels, 0, act, norm, policy, gen)
         self.down_tr128 = DownTransition(64, 1, act, norm, policy, gen)
         self.down_tr256 = DownTransition(128, 2, act, norm, policy, gen)
@@ -119,15 +128,28 @@ class PCRLv23d(nn.Module):
         self.out_tr.final_conv = Conv3d(64, n_class, 1, policy, gen)
         self.to(dev)
 
+    def transition(self, module: nn.Module, x):
+        """``module(x)``; under ``remat`` with gradients recorded, a
+        non-reentrant checkpoint that keeps none of its activations and runs
+        it again inside the backward.  The transitions draw nothing random,
+        so no RNG state is saved (reading the CUDA generator's state is not
+        allowed inside a graph capture); the run again is ``recomputing``, so
+        its BatchNorms advance their running statistics once."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return module(x)
+        return checkpoint(module, x, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(), recomputing(module)))
+
     def forward(self, x, local: bool = False):
         x = self.policy.cast_to_compute(x)
-        skip64 = self.down_tr64(x)
-        skip128 = self.down_tr128(max_pool3d(skip64))
-        skip256 = self.down_tr256(max_pool3d(skip128))
-        out512 = self.down_tr512(max_pool3d(skip256))
-        out256, pro256, pre256, mask256 = self.up_tr256(out512)
-        out128, pro128, pre128, mask128 = self.up_tr128(out256)
-        out64, pro64, pre64, mask64 = self.up_tr64(out128)
+        run = self.transition
+        skip64 = run(self.down_tr64, x)
+        skip128 = run(self.down_tr128, max_pool3d(skip64))
+        skip256 = run(self.down_tr256, max_pool3d(skip128))
+        out512 = run(self.down_tr512, max_pool3d(skip256))
+        out256, pro256, pre256, mask256 = run(self.up_tr256, out512)
+        out128, pro128, pre128, mask128 = run(self.up_tr128, out256)
+        out64, pro64, pre64, mask64 = run(self.up_tr64, out128)
         middle_masks = []
         if not local:
             if self.upsample_masks:

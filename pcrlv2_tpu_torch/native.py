@@ -1,19 +1,22 @@
-"""ctypes bindings of the port's native batch reader (``csrc/pcrl_io.cpp``;
-port of ``pcrlv2_tpu/native/__init__.py``).
+"""ctypes bindings of the port's native data plane: the batch reader
+(``csrc/pcrl_io.cpp``) and the preprocessing resampler
+(``csrc/pcrl_resample.cpp``); port of ``pcrlv2_tpu/native/__init__.py``.
 
 A C++ thread pool reads preprocessed ``.npy`` crops straight into one
 preallocated float32 batch buffer: no interpreter lock on the IO path, no
-per-sample allocation.  The library is host code (no CUDA call).
+per-sample allocation.  Another resamples a CT volume to 1 mm in one fused
+pass.  The library is host code (no CUDA call).
 
-At first use ``g++`` (the JAX package's ``native/Makefile`` flags) builds it
-into ``pcrlv2_tpu_torch/_build/libpcrl_io-<digest>.so``, the digest taken
-over the source and the flags, so an edited source is rebuilt.  Concurrent
+At first use ``g++`` (the JAX package's ``native/Makefile`` flags) builds
+both sources into ``pcrlv2_tpu_torch/_build/libpcrl_io-<digest>.so``, the
+digest taken over every source and the flags, so an edited source is
+rebuilt.  Concurrent
 first users (test workers, several trainers) serialise on an ``flock`` and
 each library is compiled to a temporary file and renamed into place, so no
 process loads a half-written one.  The port never builds into or loads from
 the JAX package's ``native/``.  If the build or load fails, ``get_lib``
-returns None, ``build_error`` says why, and the readers fall back to NumPy,
-as the JAX package's do.  Nothing here runs at import time.
+returns None, ``build_error`` says why, and the readers and the resampler
+fall back to NumPy, as the JAX package's do.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent
 SOURCE = _PKG / "csrc" / "pcrl_io.cpp"
+SOURCES = (SOURCE, _PKG / "csrc" / "pcrl_resample.cpp")
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 VERSION = 1
@@ -50,7 +54,8 @@ _LIBRARY = _Library()
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in SOURCES)
+                            + " ".join(CXX_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"libpcrl_io-{digest[:16]}.so"
 
 
@@ -63,11 +68,12 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+            proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
                                   capture_output=True, text=True, timeout=300)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"g++ failed for {SOURCE.name}:\n{proc.stderr}")
+                raise RuntimeError(f"g++ failed for {', '.join(s.name for s in SOURCES)}:"
+                                   f"\n{proc.stderr}")
             os.replace(tmp, out)
     return out
 
@@ -83,6 +89,14 @@ def _bind(path: Path) -> ctypes.CDLL:
     lib.pcrl_read_batch.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64,
                                     ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
                                     ctypes.c_int]
+    for name, in_t in (("pcrl_resample_i16_to_xyz", ctypes.c_int16),
+                       ("pcrl_resample_f32_to_xyz", ctypes.c_float)):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [ctypes.POINTER(in_t), ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                       ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int]
     version = lib.pcrl_version()
     if version != VERSION:
         raise RuntimeError(f"{path.name}: pcrl_version() is {version}, expected {VERSION}")
@@ -153,6 +167,40 @@ def read_batch(paths: Sequence[str], out: np.ndarray, n_threads: int = 8) -> np.
                              stride, n_threads)
     if rc != 0:
         raise IOError(f"pcrl_read_batch failed on {paths[int(-rc) - 1]}")
+    return out
+
+
+def resample_to_xyz(arr_zyx: np.ndarray, scales_zyx: Sequence[float],
+                    out_shape_zyx: Sequence[int], n_threads: int = 0) -> Optional[np.ndarray]:
+    """Fused trilinear resample, float32 cast and (z, y, x) → (x, y, z)
+    transpose of an int16 or float32 volume (``csrc/pcrl_resample.cpp``, the
+    native stand-in for the reference's SimpleITK resampler).
+    ``scales_zyx[d]`` = out_spacing / in_spacing: output voxel ``i`` samples
+    input continuous index ``i·scale``, clamped.  Returns the (x, y, z)
+    C-order float32 volume, or None without the library or for another
+    dtype (callers take ``preprocess.mhd``'s NumPy path)."""
+    if arr_zyx.ndim != 3 or len(scales_zyx) != 3 or len(out_shape_zyx) != 3 \
+            or min(out_shape_zyx) < 1 or min(arr_zyx.shape) < 1:
+        raise ValueError(f"resample_to_xyz: a non-empty 3-D volume to 3 positive sizes, got "
+                         f"{arr_zyx.shape} → {tuple(out_shape_zyx)} with scales {scales_zyx}")
+    lib = get_lib()
+    if lib is None:
+        return None
+    if arr_zyx.dtype == np.int16:
+        fn, ptr_t = lib.pcrl_resample_i16_to_xyz, ctypes.c_int16
+    elif arr_zyx.dtype == np.float32:
+        fn, ptr_t = lib.pcrl_resample_f32_to_xyz, ctypes.c_float
+    else:
+        return None
+    arr_zyx = np.ascontiguousarray(arr_zyx)
+    zi, yi, xi = arr_zyx.shape
+    zo, yo, xo = out_shape_zyx
+    out = np.empty((xo, yo, zo), np.float32)
+    if n_threads <= 0:
+        n_threads = min(os.cpu_count() or 1, 16)
+    fn(arr_zyx.ctypes.data_as(ctypes.POINTER(ptr_t)), zi, yi, xi,
+       float(scales_zyx[0]), float(scales_zyx[1]), float(scales_zyx[2]),
+       out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), zo, yo, xo, n_threads)
     return out
 
 

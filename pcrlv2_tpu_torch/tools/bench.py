@@ -22,15 +22,18 @@ the value is images/s.  ``BENCH_WARMUP`` steps
 
 Environment (names and defaults of ``bench.py``): ``BENCH_BATCH`` (32),
 ``BENCH_WARMUP`` (3), ``BENCH_STEPS`` (20), ``BENCH_TRIALS`` (3),
-``BENCH_LAZY_MASKS=1`` (``upsample_masks=False``), ``BENCH_DIM`` (3 or 2).
-``BENCH_REMAT=1`` raises: the port has no activation checkpointing yet.  ``BENCH_PRNG`` selects a ``jax.random`` key
-implementation, which has no counterpart here, and raises too.
+``BENCH_LAZY_MASKS=1`` (``upsample_masks=False``), ``BENCH_DIM`` (3 or 2),
+``BENCH_REMAT=1`` (``PCRLv23d(remat=True)``: each transition recomputed in
+the backward; the 2D model has no such option and raises).  ``BENCH_PRNG``
+selects a ``jax.random`` key implementation, which has no counterpart
+here, and raises.
 
 Prints one JSON line: ``metric``, ``value``, ``unit``, ``trials`` and,
 when the trials spread by more than 10 %, ``spread_warning`` (the JAX
 bench's keys), plus ``device`` (the card's name and power limit, as
 ``nvidia-smi`` gives them), ``peak_memory_gib`` (``max_memory_allocated``
-over the run, the graphs' pool included), ``batch`` and ``compute_dtype``.
+over the run, the graphs' pool included), ``batch``, ``compute_dtype`` and
+``remat``.
 There is no ``vs_baseline``: the JAX bench's denominator is an estimate
 for the reference's 2021 GPUs, neither measured nor this card's.
 
@@ -84,14 +87,14 @@ def device_label(device: torch.device) -> str:
 
 
 def run(batch: dict, policy: Policy, *, warmup: int = 3, steps: int = 20, trials: int = 3,
-        device=None, upsample_masks: bool = True) -> dict:
+        device=None, upsample_masks: bool = True, remat: bool = False) -> dict:
     """Time the trainer's step (``Trainer.step``: the pipelined step, on CUDA
     graphs after ``GRAPH_WARMUP`` eager steps) on ``batch`` under
     ``policy``, at epoch 0's learning rate: raw LUNA crops (``pair`` (B, 2,
     X, Y, Z), ``locals`` (B, V, x, y, z)) train ``PCRLv23d``, a chest batch
     (``image`` (B, canvas, canvas, C)) ``PCRLv2``, each through its
-    pipeline's augmentation.  Prints the JSON line and returns it as a
-    dict.  The trainer's ``metrics.jsonl`` goes to a
+    pipeline's augmentation (``remat``: ``PCRLv23d(remat=True)``).  Prints
+    the JSON line and returns it as a dict.  The trainer's ``metrics.jsonl`` goes to a
     temporary directory."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
@@ -100,9 +103,15 @@ def run(batch: dict, policy: Policy, *, warmup: int = 3, steps: int = 20, trials
     size = next(iter(batch.values())).shape[0]
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    build, aug_fn = ((PCRLv2, make_chest_aug_fn()) if dim == 2
-                     else (PCRLv23d, make_luna_aug_fn()))
-    model = build(policy=policy, upsample_masks=upsample_masks, seed=0, device=dev)
+    if dim == 2:
+        if remat:
+            raise ValueError("the 2D PCRLv2 has no activation checkpointing")
+        model = PCRLv2(policy=policy, upsample_masks=upsample_masks, seed=0, device=dev)
+        aug_fn = make_chest_aug_fn()
+    else:
+        model = PCRLv23d(policy=policy, upsample_masks=upsample_masks, seed=0, device=dev,
+                         remat=remat)
+        aug_fn = make_luna_aug_fn()
     with tempfile.TemporaryDirectory() as out:
         cfg = TrainConfig(b=size, epochs=0, output=out, seed=0,
                           amp=policy.compute_dtype == torch.bfloat16)
@@ -127,7 +136,8 @@ def run(batch: dict, policy: Policy, *, warmup: int = 3, steps: int = 20, trials
                                  "perturbed, rerun")
     out.update(device=device_label(dev),
                peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else None,
-               batch=size, compute_dtype=str(policy.compute_dtype).removeprefix("torch."))
+               batch=size, compute_dtype=str(policy.compute_dtype).removeprefix("torch."),
+               remat=remat)
     print(json.dumps(out), flush=True)
     return out
 
@@ -166,16 +176,17 @@ def main(device=None) -> dict:
     dim = _env_int("BENCH_DIM", 3)
     if dim not in METRICS:
         raise SystemExit(f"BENCH_DIM={dim}: expected 3 or 2")
-    if os.environ.get("BENCH_REMAT", "0") == "1":
-        raise SystemExit("BENCH_REMAT=1 needs activation checkpointing in the port's "
-                         "PCRLv23d, which it has not yet")
+    remat = os.environ.get("BENCH_REMAT", "0") == "1"
+    if remat and dim == 2:
+        raise SystemExit("BENCH_REMAT=1 with BENCH_DIM=2: the 2D PCRLv2 has no activation "
+                         "checkpointing (bench.py applies it to the 3D model only)")
     if os.environ.get("BENCH_PRNG"):
         raise SystemExit("BENCH_PRNG selects a jax.random key implementation; the port "
                          "draws from torch.Generator and has no counterpart")
     dev = resolve_device(device)
     kwargs = dict(warmup=_env_int("BENCH_WARMUP", 3), steps=_env_int("BENCH_STEPS", 20),
                   trials=max(1, _env_int("BENCH_TRIALS", 3)), device=dev,
-                  upsample_masks=os.environ.get("BENCH_LAZY_MASKS", "0") != "1")
+                  upsample_masks=os.environ.get("BENCH_LAZY_MASKS", "0") != "1", remat=remat)
     size = _env_int("BENCH_BATCH", 32)
     # bench.py times the 2D step at twice BENCH_BATCH (run2d.sh's b = 64)
     batch = synthetic_chest_batch(2 * size) if dim == 2 else synthetic_luna_batch(size)

@@ -116,6 +116,16 @@ def pretask3d(rank, world, group) -> dict:
     return out
 
 
+def remat3d(rank, world, group) -> dict:
+    """``pretask3d``'s first step on ``PCRLv23d(remat=True)``: the
+    transitions recomputed in the backward, their BatchNorms' all-reduces
+    with them."""
+    tstate = TrainState(PCRLv23d(policy=PARITY_POLICY, device="cpu", seed=0, remat=True),
+                        group=group)
+    m = train_step(tstate, _rows(views3d(0), rank, world), LEVELS3, 1e-3, 0)
+    return {"m": _metrics(m), "s": snapshot(tstate)}
+
+
 def pretask2d(rank, world, group) -> dict:
     """One step of the 2D ``PCRLv2`` (no loss guard)."""
     tstate = TrainState(PCRLv2(policy=PARITY_POLICY, device="cpu", seed=0), group=group)
@@ -169,11 +179,16 @@ def finetune_eval(rank, world, group, out_dir) -> dict:
 
 
 def run_all(rank: int, world: int, group, out_dir: str) -> dict:
-    return {"bn": batch_norm(rank, world, group), "pretask3d": pretask3d(rank, world, group),
-            "pretask2d": pretask2d(rank, world, group),
-            "finetune3d": finetune3d(rank, world, group),
-            "finetune2d": finetune2d(rank, world, group),
-            "eval": finetune_eval(rank, world, group, out_dir)}
+    """Every case; ``remat3d`` only in a group (it is held to the group's
+    own plain step)."""
+    out = {"bn": batch_norm(rank, world, group), "pretask3d": pretask3d(rank, world, group),
+           "pretask2d": pretask2d(rank, world, group),
+           "finetune3d": finetune3d(rank, world, group),
+           "finetune2d": finetune2d(rank, world, group),
+           "eval": finetune_eval(rank, world, group, out_dir)}
+    if group is not None:
+        out["remat3d"] = remat3d(rank, world, group)
+    return out
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ import torch
 
 from pcrlv2_tpu_torch.core.precision import PARITY_POLICY
 from pcrlv2_tpu_torch.data.pipeline import synthetic_luna_batch
+from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 from pcrlv2_tpu_torch.tools import bench
 from pcrlv2_tpu_torch.utils import chiplock
 
@@ -97,7 +98,7 @@ def test_bench_run_prints_one_json_line(capsys):
 
 @pytest.mark.parametrize("env,missing", [
     ({"BENCH_DIM": "4"}, "expected 3 or 2"),
-    ({"BENCH_REMAT": "1"}, "activation checkpointing"),
+    ({"BENCH_REMAT": "1", "BENCH_DIM": "2"}, "activation checkpointing"),
     ({"BENCH_PRNG": "rbg"}, "no counterpart"),
 ])
 def test_bench_names_what_it_cannot_run(monkeypatch, env, missing):
@@ -105,6 +106,30 @@ def test_bench_names_what_it_cannot_run(monkeypatch, env, missing):
         monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit, match=missing):
         bench.main(device="cpu")
+
+
+def test_bench_remat_builds_the_remat_model(monkeypatch, capsys):
+    """``BENCH_REMAT=1`` reaches ``run`` as ``remat``, which times
+    ``PCRLv23d(remat=True)`` (a tiny batch on the CPU here) and says so in
+    its line."""
+    asked = {}
+    monkeypatch.setenv("BENCH_REMAT", "1")
+    monkeypatch.setattr(bench, "run", lambda batch, policy, **kw: asked.update(kw))
+    bench.main(device="cpu")
+    assert asked["remat"] is True
+    monkeypatch.undo()
+    built = []
+
+    def spy(**kw):
+        built.append(kw["remat"])
+        return PCRLv23d(**kw)
+
+    monkeypatch.setattr(bench, "PCRLv23d", spy)
+    batch = synthetic_luna_batch(2, size=(16, 16, 8), local=(8, 8, 8), n_views=2, seed=1)
+    out = bench.run(batch, PARITY_POLICY, warmup=0, steps=1, trials=1, device="cpu",
+                    remat=True)
+    assert built == [True] and out["remat"] is True and out["value"] > 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
 
 
 def test_bench_needs_cuda_unless_cpu_is_asked(monkeypatch):

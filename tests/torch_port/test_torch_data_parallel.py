@@ -20,7 +20,7 @@ import torch
 
 from tests import torch_dp_cases as cases
 
-TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+TESTS_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(TESTS_DIR)
 WORLD = 2
 #: the JAX test's tolerances for every parameter and BN statistic after a
@@ -142,6 +142,22 @@ def test_pretask_step_two_ranks_equal_one(runs):
         got = res["pretask3d"]
         _metrics_close(got["m1"], one["pretask3d"]["m1"])
         _state_close(got["s1"], one["pretask3d"]["s1"])
+
+
+def test_remat_step_equals_the_plain_step_on_two_ranks(runs):
+    """``PCRLv23d(remat=True)`` under the 2-rank group: each rank's step
+    equals its plain step bit for bit (metrics, parameters, BN statistics,
+    momentum): the recomputed BatchNorms' all-reduces stayed matched across
+    the ranks and advanced no statistic twice."""
+    _, two = runs
+    for res in two:
+        got, want = res["remat3d"], res["pretask3d"]
+        assert got["m"] == want["m1"]
+        assert got["s"]["step"] == want["s1"]["step"]
+        for k, v in want["s1"]["state"].items():
+            assert torch.equal(got["s"]["state"][k], v), k
+        assert all(torch.equal(a, b) for a, b in zip(got["s"]["momentum"],
+                                                     want["s1"]["momentum"]))
 
 
 def test_mixup_step_permutes_the_global_batch(runs):

@@ -2,7 +2,8 @@
 cpu --gpus 0,1`` spawns two gloo ranks, which train, evaluate, write one
 ``.pt`` and a metrics file each, and resume (the counterpart of
 ``tests/multihost_trainer_worker.py``); the device count, the batch check
-and the per-rank list slicing.
+and the per-rank data: rows of the JAX CLI's global batches under
+``--gpus``, interleaved slices under ``--multihost``.
 
 The module's fixture runs the CLI three times in one process (so the
 spawned ranks start from a process that never imported JAX): one run of
@@ -25,7 +26,7 @@ from pcrlv2_tpu_torch.core import mesh
 from pcrlv2_tpu_torch.models.unet3d import PCRLv23d
 from pcrlv2_tpu_torch.train import checkpoint as ckpt
 
-TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+TESTS_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(TESTS_DIR)
 
 
@@ -76,13 +77,14 @@ def _rows(path):
 
 
 def test_two_ranks_train_evaluate_and_write_once(runs):
-    """Each epoch: one step of 2 × 2 rows, then eval over each rank's 3
-    held-out crops (a batch of 2; the ragged tail of 1 skipped, with the
-    warning); one ``.pt`` (rank 0's), loading strictly; ``metrics.jsonl``
-    and ``metrics.rank1.jsonl``, the global loss in both."""
+    """Each epoch: one step of 2 × 2 rows, then eval over the 6 held-out
+    crops (one global batch of 4, 2 rows a rank; the ragged tail of 2
+    skipped, with the warning); one ``.pt`` (rank 0's), loading strictly;
+    ``metrics.jsonl`` and ``metrics.rank1.jsonl``, the global loss in
+    both."""
     out, log = runs["whole"], runs["log"]
     assert "==> data parallel: 2 device(s) of the 2 --gpus lists" in log
-    assert "WARNING: eval tail batch of 1 samples skipped" in log
+    assert "WARNING: eval tail batch of 2 samples skipped" in log
     assert log.rstrip().splitlines()[-1] == "[]"  # the CLI's process imported no JAX
     pts = sorted(f for f in os.listdir(out) if f.endswith(".pt"))
     assert pts == ["pcrlv2_luna_pretask_1.0_0.pt"]
@@ -122,15 +124,55 @@ def test_resume_restores_the_state_and_each_ranks_generators(runs):
 
 
 def test_lists_are_sliced_per_rank_and_trimmed_to_a_common_length():
-    """``shard_for_process``: ``lst[rank::world][:len(lst)//world]`` and the
-    ``b / world`` batch; one rank passes through."""
-    args = argparse.Namespace(b=8, rank=0, world=1)
+    """``shard_for_process`` under ``--multihost``:
+    ``lst[rank::world][:len(lst)//world]`` and the ``b / world`` batch; one
+    rank, and ranks spawned for ``--gpus``, pass through."""
     lst = [f"s{i}" for i in range(7)]
-    assert cli.shard_for_process(args, lst) == (args, (lst,))
+    for args in (argparse.Namespace(b=8, rank=0, world=1, multihost=True),
+                 argparse.Namespace(b=8, rank=1, world=2, multihost=False)):
+        assert cli.shard_for_process(args, lst) == (args, (lst,))
     for rank, want in ((0, ["s0", "s2", "s4"]), (1, ["s1", "s3", "s5"])):
-        local, (sliced,) = cli.shard_for_process(argparse.Namespace(b=8, rank=rank, world=2),
-                                                 lst)
+        local, (sliced,) = cli.shard_for_process(
+            argparse.Namespace(b=8, rank=rank, world=2, multihost=True), lst)
         assert sliced == want and local.b == 4
+
+
+def _loaders(argv, rank, world, monkeypatch):
+    """The loaders ``prepare`` builds for rank ``rank`` of ``world`` (the
+    call each spawned rank makes), on the CPU."""
+    monkeypatch.setattr(mesh, "world", lambda group=None: world)
+    monkeypatch.setattr(mesh, "rank", lambda group=None: rank)
+    return cli.prepare(argv, torch.device("cpu"), group=object() if world > 1 else None)[2]
+
+
+def test_gpus_ranks_take_their_rows_of_the_global_batches(tmp_path, monkeypatch):
+    """``--device cpu --gpus 0,1``: each epoch's train batches and the eval
+    batches of the two ranks, gathered in rank order, are the one-process
+    run's global batches row for row (the JAX CLI's one process over its
+    data mesh); nothing is left out but the train list's ``drop_last``
+    tail and the eval tail the ranks skip.  ``--multihost`` keeps the
+    interleaved slices."""
+    tree = str(tmp_path / "tree")
+    _tiny_tree(tree)
+    argv = ["--data", tree, "--device", "cpu", "--b", "4", "--output", str(tmp_path / "out")]
+    one = _loaders([*argv, "--gpus", "0"], 0, 1, monkeypatch)
+    argv += ["--gpus", "0,1"]
+    ranks = [_loaders(argv, r, 2, monkeypatch) for r in (0, 1)]
+    assert len(one["train"]) == 3 and len(one["eval"]) == 2
+    for split, epochs in (("train", (0, 1)), ("eval", (0,))):
+        for epoch in epochs:
+            want = list(one[split].epoch(epoch))
+            got = [list(r[split].epoch(epoch)) for r in ranks]
+            assert len(got[0]) == len(got[1]) == (3 if split == "train" else 1)
+            for i, (a, b) in enumerate(zip(*got)):
+                for k in want[i]:
+                    assert a[k].shape[0] == b[k].shape[0] == 2
+                    np.testing.assert_array_equal(np.concatenate([a[k], b[k]]), want[i][k])
+    full = one["train"].paths
+    for r in (0, 1):
+        sliced = _loaders([*argv, "--multihost"], r, 2, monkeypatch)
+        assert sliced["train"].paths == full[r::2][:7] and sliced["train"].part is None
+        assert sliced["train"].batch_size == 2
 
 
 def test_a_batch_that_does_not_divide_is_refused(monkeypatch):

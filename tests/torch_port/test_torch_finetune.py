@@ -452,7 +452,8 @@ def test_weight_loads_jax_exported_pt_leaf_exact(tmp_path, chest_setup, luna_set
 
 def _schema():
     """The torchvision ResNet-18 ``state_dict`` schema fixture: {key: shape}."""
-    path = os.path.join(os.path.dirname(__file__), "fixtures", "torchvision_resnet18_schema.txt")
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "fixtures",
+                        "torchvision_resnet18_schema.txt")
     want = {}
     for line in open(path):
         if line.strip() and not line.startswith("#"):

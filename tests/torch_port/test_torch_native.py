@@ -14,7 +14,7 @@ from pcrlv2_tpu.data import pipeline as jax_pipeline
 from pcrlv2_tpu_torch import native
 from pcrlv2_tpu_torch.data import pipeline
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 @pytest.fixture(scope="module")

@@ -31,7 +31,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def test_package_imports_no_jax():
@@ -39,7 +39,8 @@ def test_package_imports_no_jax():
                                                   "pcrlv2_tpu_torch.")]
     for name in ("ops.conv3d_kernel", "native", "utils.chiplock", "tools.bench",
                  "models.resnet", "models.unet2d", "data.augment2d", "train.finetune",
-                 "core.mesh"):
+                 "core.mesh", "preprocess", "preprocess.mhd", "preprocess.luna",
+                 "cli.luna_preprocess", "data.make_manifests"):
         assert f"pcrlv2_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -22,7 +22,7 @@ from pcrlv2_tpu_torch.tools import probe_mosaic as pm
 from pcrlv2_tpu_torch.tools import proto_co1_kernel as co
 from pcrlv2_tpu_torch.tools import proto_conv as pc
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _load_jax_tool(name):
